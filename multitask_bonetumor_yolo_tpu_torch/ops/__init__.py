@@ -1,0 +1,17 @@
+"""Tensor ops: resize, NMS, mask composition, the Proto phase composition,
+and (under ``kernels/``) the hand-written CUDA kernels with their plain
+PyTorch versions."""
+
+from .resize import resize_bilinear
+from .nms import NMSResult, batched_nms, postprocess_detections
+from .masks import compose_masks
+from .fused_upsample import fused_upsample_conv3x3
+
+__all__ = [
+    "resize_bilinear",
+    "NMSResult",
+    "batched_nms",
+    "postprocess_detections",
+    "compose_masks",
+    "fused_upsample_conv3x3",
+]
