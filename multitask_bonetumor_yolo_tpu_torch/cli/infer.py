@@ -5,7 +5,8 @@
 
 The flags are the JAX CLI's, except that ``--checkpoint-path`` names the
 bridge's ``.npz`` (``bridge.save_npz``; orbax checkpoints need JAX). Runs on
-the first CUDA device when there is one, else on the CPU. Writes
+``--device`` (default ``cuda``, the first card; without one it raises unless
+the caller passes ``--device cpu``). Writes
 ``predictions.json`` (and ``<stem>_masks.npy`` with ``--instance-masks``);
 the JAX CLI's overlay images are not produced.
 
@@ -120,12 +121,16 @@ def main(argv=None):
                     help="compose per-instance masks and write <stem>_masks.npy")
     ap.add_argument("--no-mask-crop", action="store_true",
                     help="with --instance-masks: skip the crop-to-box step")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device to run on (default cuda; 'cpu' to run without a card)")
     args = ap.parse_args(argv)
 
     cfg = ModelConfig(nc_det=args.nc_det, nc_img=args.num_img_classes,
                       img_size=args.img_size, single_head=args.single_head,
                       dtype=args.dtype)
-    device = torch.device("cuda", 0) if torch.cuda.is_available() else torch.device("cpu")
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass --device cpu to run on the CPU")
     model = load_model(cfg, args.checkpoint_path, device)
     out_dir = Path(args.out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)

@@ -7,7 +7,7 @@ from .boxes import (
     box_iou_matrix,
     dist2bbox,
 )
-from .dfl import dfl_decode
+from .dfl import dfl_decode, dfl_targets
 from .letterbox import letterbox_geometry, scale_boxes_to_letterbox, PAD_VALUE
 
 __all__ = [
@@ -19,6 +19,7 @@ __all__ = [
     "box_iou_matrix",
     "dist2bbox",
     "dfl_decode",
+    "dfl_targets",
     "letterbox_geometry",
     "scale_boxes_to_letterbox",
     "PAD_VALUE",

@@ -4,7 +4,11 @@
 //     out = x + fc2'(gelu_tanh(fc1'(LN(dwconv7x7(x) + b_dw))))
 //
 // Replaces the TPU kernel multitask_bonetumor_yolo_tpu/ops/pallas/
-// convnext_block.py::_kernel (driven by _forward_padded, save_res=False form).
+// convnext_block.py::_kernel (driven by _forward_padded), both forms: the
+// inference form, and the residual-saving form (save_res=True, training)
+// that also writes y = dwconv7x7(x) + b_dw in the compute dtype for the
+// backward, csrc/convnext_block_bwd.cu (one extra write of C values per
+// pixel, taken from shared memory while LayerNorm reads them).
 // LayerNorm scale/bias are folded into fc1 and layer-scale gamma into fc2 by
 // the caller (ops/kernels/convnext_block.py::fold_block_params), so the kernel
 // applies only (y - mean) * rsqrt(var + eps) before fc1.
@@ -49,41 +53,16 @@
 // the normalised tensor and the post-GELU hidden layer are cast to the compute
 // dtype before their matrix products; the residual is added in fp32, then cast.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <mma.h>
-
-using namespace nvcuda;
+#include "cuda_common.cuh"
 
 namespace {
+
+using namespace cnb;
 
 constexpr int NWARP = 8;
 constexpr int NTHREAD = NWARP * 32;
 constexpr int CC = 32;  // channels per dwconv chunk (one per lane)
 constexpr int MAXC = 768;
-
-template <typename T> struct Mma;
-
-template <> struct Mma<__nv_bfloat16> {
-  static constexpr int K = 16;
-  static constexpr int PAD = 8;  // row padding (elements) of smem operands
-  using AFrag = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
-  using BFrag = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
-  using CFrag = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-  template <typename F> __device__ static void fix(F&) {}
-};
-
-template <> struct Mma<float> {
-  static constexpr int K = 8;
-  static constexpr int PAD = 4;
-  using AFrag = wmma::fragment<wmma::matrix_a, 16, 16, 8, wmma::precision::tf32, wmma::row_major>;
-  using BFrag = wmma::fragment<wmma::matrix_b, 16, 16, 8, wmma::precision::tf32, wmma::row_major>;
-  using CFrag = wmma::fragment<wmma::accumulator, 16, 16, 8, float>;
-  template <typename F> __device__ static void fix(F& f) {
-#pragma unroll
-    for (int i = 0; i < f.num_elements; ++i) f.x[i] = wmma::__float_to_tf32(f.x[i]);
-  }
-};
 
 // One kernel instantiation: compute dtype T; RT 16-pixel row tiles per CTA;
 // KMAX output column tiles per warp (>= C/64); NH hidden columns per MLP
@@ -105,37 +84,6 @@ struct Cfg {
   static_assert(RT % 2 == 0 && TW % PX == 0, "tile shape");
   static_assert(NH % 64 == 0 && KS % 64 == 0, "weight tiling");
 };
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);  // round to nearest even, as torch's .to(bfloat16)
-}
-
-// tanh-form GELU, x * 0.5 * (1 + tanh(u)), written as x * sigmoid(2u) (the
-// same function) so that it costs one fast exp and one fast divide instead
-// of tanhf: for x -> -inf the divisor overflows and the result is -0.
-__device__ __forceinline__ float gelu_tanh(float x) {
-  const float u2 = 1.5957691216057308f * (x + 0.044715f * x * x * x);  // 2u
-  return __fdividef(x, 1.0f + __expf(-u2));
-}
-
-// 16-byte global -> shared copy (cp.async, bypassing L1) that writes zeros
-// instead when `valid` is false (src-size 0: nothing is read from `gmem`)
-__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__host__ __device__ constexpr size_t align128(size_t n) { return (n + 127) & ~size_t(127); }
-__host__ __device__ constexpr size_t max_sz(size_t a, size_t b) { return a > b ? a : b; }
 
 // Shared memory: y (fp32 dwconv output, later the output staging), z (the
 // normalised tensor), phase-1 scratch (two halo tiles + taps) and phase-2
@@ -218,9 +166,13 @@ __device__ __forceinline__ void issue_tile(const T* __restrict__ w1, const T* __
   }
 }
 
-template <typename K>
+// SAVE: also write y (the dwconv output plus bias, pre-LN, compute dtype,
+// NHWC) for the backward (csrc/convnext_block_bwd.cu). The SAVE = false
+// instantiation is the inference kernel, unchanged.
+template <typename K, bool SAVE>
 __global__ void __launch_bounds__(NTHREAD, K::MINB)
 cnb_forward_kernel(const typename K::T* __restrict__ x, typename K::T* __restrict__ out,
+                   typename K::T* __restrict__ yout,  // [B][H][W][C] when SAVE
                    const float* __restrict__ dw,   // [49][C] fp32 taps
                    const float* __restrict__ dwb,  // [C]
                    const typename K::T* __restrict__ w1,  // [C][4C] folded fc1
@@ -255,6 +207,7 @@ cnb_forward_kernel(const typename K::T* __restrict__ x, typename K::T* __restric
   const size_t img = size_t(b) * H * W * C;
   const T* xb = x + img;
   T* ob = out + img;
+  T* yb = SAVE ? yout + img : nullptr;
 
   // ---- phase 1: depthwise 7x7 (SAME, zero taps outside the image) ----
   // Channel chunk by channel chunk; chunk k+1's halo tile and taps are
@@ -345,9 +298,13 @@ cnb_forward_kernel(const typename K::T* __restrict__ x, typename K::T* __restric
     const float var = fmaxf(s2 * inv_c - mean * mean, 0.f);
     const float rs = rsqrtf(var + eps);
     const float mr = mean * rs;
+    // y is written from the same read: in fp32, z overwrites y in place
+    const bool save = SAVE && h0 + p / TW < H && w0 + p % TW < W;
+    T* yp = save ? yb + (size_t(h0 + p / TW) * W + w0 + p % TW) * C : nullptr;
     for (int c = lane; c < C; c += 32) {
       const float v = ys[p * L.ldy + c];
       zs[p * L.ldz + c] = from_f<T>(v * rs - mr);
+      if (save) yp[c] = from_f<T>(v);
     }
   }
   __syncthreads();  // z complete; y (and for bf16 its bytes) free for phase 2
@@ -496,19 +453,20 @@ cnb_forward_kernel(const typename K::T* __restrict__ x, typename K::T* __restric
   }
 }
 
-template <typename K>
-int launch_k(const void* x, void* out, const float* dw, const float* dwb, const void* w1,
+template <typename K, bool SAVE>
+int launch_k(const void* x, void* out, void* y, const float* dw, const float* dwb, const void* w1,
              const float* b1, const void* w2, const float* b2, int B, int H, int W, int C,
              float eps, cudaStream_t stream) {
   using T = typename K::T;
   const Layout<K> L(C);
-  auto kern = cnb_forward_kernel<K>;
+  auto kern = cnb_forward_kernel<K, SAVE>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        int(L.total));
   if (e != cudaSuccess) return int(e);
   const long long tiles = (long long)B * ((H + K::TH - 1) / K::TH) * ((W + K::TW - 1) / K::TW);
   kern<<<unsigned(tiles), NTHREAD, L.total, stream>>>(
-      static_cast<const T*>(x), static_cast<T*>(out), dw, dwb, static_cast<const T*>(w1), b1,
+      static_cast<const T*>(x), static_cast<T*>(out), static_cast<T*>(y), dw, dwb,
+      static_cast<const T*>(w1), b1,
       static_cast<const T*>(w2), b2, H, W, C, eps);
   return int(cudaGetLastError());
 }
@@ -518,12 +476,12 @@ int launch_k(const void* x, void* out, const float* dw, const float* dwb, const 
 // shared memory (< 227 KB) fit. On an H100 at the batch-16 640^2 bf16 stage
 // shapes, TM = 128 / 64 / 64 / 32 cut the time per block by 15 / 26 / 28 / 0 %
 // against TM = 32 everywhere; TM = 64 at C = 96 was 8 % slower than TM = 32.
-template <typename T>
-int launch(const void* x, void* out, const float* dw, const float* dwb, const void* w1,
+template <typename T, bool SAVE>
+int launch(const void* x, void* out, void* y, const float* dw, const float* dwb, const void* w1,
            const float* b1, const void* w2, const float* b2, int B, int H, int W, int C,
            float eps, cudaStream_t stream) {
 #define CNB_LAUNCH(...) \
-  launch_k<Cfg<T, __VA_ARGS__>>(x, out, dw, dwb, w1, b1, w2, b2, B, H, W, C, eps, stream)
+  launch_k<Cfg<T, __VA_ARGS__>, SAVE>(x, out, y, dw, dwb, w1, b1, w2, b2, B, H, W, C, eps, stream)
   if constexpr (sizeof(T) == 2) {
     if (C <= 128) return CNB_LAUNCH(8, 2, 128, 256, 2);
     if (C <= 192) return CNB_LAUNCH(4, 3, 128, 256, 2);
@@ -543,12 +501,13 @@ int launch(const void* x, void* out, const float* dw, const float* dwb, const vo
 extern "C" {
 
 // x, out: contiguous NHWC [B, H, W, C] in the compute dtype (bf16 if is_bf16,
-// else fp32), C a multiple of 16 and at most MAXC; dw [49][C] fp32; w1 [C][4C]
-// and w2 [4C][C] in the compute dtype; biases fp32. Launches on `stream`;
-// returns cudaGetLastError().
-int cnb_forward(const void* x, void* out, const void* dw, const void* dwb, const void* w1,
-                const void* b1, const void* w2, const void* b2, int B, int H, int W, int C,
-                float eps, int is_bf16, void* stream) {
+// else fp32), C a multiple of 16 and at most MAXC; y: nullptr, or a tensor
+// like x that receives the dwconv output plus bias (the residual-saving form);
+// dw [49][C] fp32; w1 [C][4C] and w2 [4C][C] in the compute dtype; biases
+// fp32. Launches on `stream`; returns cudaGetLastError().
+int cnb_forward(const void* x, void* out, void* y, const void* dw, const void* dwb,
+                const void* w1, const void* b1, const void* w2, const void* b2, int B, int H,
+                int W, int C, float eps, int is_bf16, void* stream) {
   if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || C % 16 != 0 || C > MAXC)
     return int(cudaErrorInvalidValue);
   const auto* f_dw = static_cast<const float*>(dw);
@@ -556,9 +515,15 @@ int cnb_forward(const void* x, void* out, const void* dw, const void* dwb, const
   const auto* f_b1 = static_cast<const float*>(b1);
   const auto* f_b2 = static_cast<const float*>(b2);
   auto s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return launch<__nv_bfloat16>(x, out, f_dw, f_dwb, w1, f_b1, w2, f_b2, B, H, W, C, eps, s);
-  return launch<float>(x, out, f_dw, f_dwb, w1, f_b1, w2, f_b2, B, H, W, C, eps, s);
+#define CNB_DISPATCH(T, SAVE) \
+  return launch<T, SAVE>(x, out, y, f_dw, f_dwb, w1, f_b1, w2, f_b2, B, H, W, C, eps, s)
+  if (is_bf16) {
+    if (y) CNB_DISPATCH(__nv_bfloat16, true);
+    CNB_DISPATCH(__nv_bfloat16, false);
+  }
+  if (y) CNB_DISPATCH(float, true);
+  CNB_DISPATCH(float, false);
+#undef CNB_DISPATCH
 }
 
 }  // extern "C"

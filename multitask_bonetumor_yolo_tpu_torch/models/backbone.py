@@ -4,7 +4,10 @@
 Stem 4x4/4 patchify conv + LN; four stages of depths (3, 3, 9, 3) and dims
 (96, 192, 384, 768); between stages LN + 2x2/2 patchify conv. Block: 7x7
 depthwise -> LN -> 4x MLP -> layer-scale -> residual, run either by the
-hand-written CUDA kernel or by the eager reference (``pallas`` below).
+hand-written CUDA kernel or by the eager reference (``pallas`` below). In
+training the kernel path is K1's residual-saving form with K2 as its
+backward, the eager path runs under autograd; ``block_bwd`` picks per stage
+width, as the JAX ``_bwd_for_dim`` does.
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .common import C2f
+from .common import BN_MOMENTUM_BODY, C2f
 from ..ops.kernels.convnext_block import convnext_block, convnext_block_ref
 
 TINY_DEPTHS = (3, 3, 9, 3)
@@ -67,14 +70,28 @@ def use_kernel(pallas: str, x: torch.Tensor) -> bool:
     return pallas == "on" or (pallas == "auto" and x.device.type == "cuda")
 
 
+def bwd_for_dim(dim: int, policy: str = "auto") -> str:
+    """The block backward of a stage of width ``dim`` (JAX ``_bwd_for_dim``):
+    "fused" (K1's saving form + K2) or "ref" (eager blocks under autograd).
+    "auto" is the JAX package's per-stage policy, measured on the TPU: fused
+    for C <= 384, eager at C = 768."""
+    if policy not in ("auto", "fused", "ref"):
+        raise ValueError(f"unknown block_bwd {policy!r}")
+    if policy != "auto":
+        return policy
+    return "fused" if dim <= 384 else "ref"
+
+
 class ConvNeXtBlock(nn.Module):
     """One ConvNeXt block. Raw parameters named as the Flax module's, in torch
     layouts (``dw_kernel [C,1,7,7]``, ``w1 [4C,C]``, ``w2 [C,4C]``)."""
 
-    def __init__(self, dim: int, layer_scale_init: float = 1e-6, pallas: str = "auto"):
+    def __init__(self, dim: int, layer_scale_init: float = 1e-6, pallas: str = "auto",
+                 block_bwd: str = "auto"):
         super().__init__()
         c = dim
         self.pallas = pallas
+        self.bwd = bwd_for_dim(dim, block_bwd)
         self.dw_kernel = nn.Parameter(torch.empty(c, 1, 7, 7))
         self.dw_bias = nn.Parameter(torch.zeros(c))
         self.ln_scale = nn.Parameter(torch.ones(c))
@@ -89,12 +106,16 @@ class ConvNeXtBlock(nn.Module):
         return (self.dw_kernel, self.dw_bias, self.ln_scale, self.ln_bias,
                 self.w1, self.b1, self.w2, self.b2, self.gamma)
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
         """NCHW (channels_last) in and out; the block itself runs on the
-        NHWC view, which is contiguous for a channels_last tensor."""
-        x = x.contiguous(memory_format=torch.channels_last)
-        fn = convnext_block if use_kernel(self.pallas, x) else convnext_block_ref
-        return fn(x.permute(0, 2, 3, 1), *self.params()).permute(0, 3, 1, 2)
+        NHWC view, which is contiguous for a channels_last tensor. The
+        kernel path, unless this stage trains as eager blocks."""
+        x = x.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
+        if use_kernel(self.pallas, x) and not (train and self.bwd == "ref"):
+            out = convnext_block(x, *self.params(), bwd=self.bwd)
+        else:
+            out = convnext_block_ref(x, *self.params())
+        return out.permute(0, 3, 1, 2)
 
 
 class ConvNeXtFeatures(nn.Module):
@@ -102,7 +123,7 @@ class ConvNeXtFeatures(nn.Module):
 
     def __init__(self, depths: Sequence[int] = TINY_DEPTHS,
                  dims: Sequence[int] = TINY_DIMS, out_indices=(1, 2, 3),
-                 pallas: str = "auto", in_ch: int = 3):
+                 pallas: str = "auto", in_ch: int = 3, block_bwd: str = "auto"):
         super().__init__()
         self.depths, self.dims = tuple(depths), tuple(dims)
         self.out_indices = tuple(out_indices)
@@ -115,9 +136,10 @@ class ConvNeXtFeatures(nn.Module):
                 self.add_module(f"downsample_conv{i}",
                                 PatchifyConv(self.dims[i - 1], dim, 2))
             for j in range(depth):
-                self.add_module(f"stage{i}_block{j}", ConvNeXtBlock(dim, pallas=pallas))
+                self.add_module(f"stage{i}_block{j}",
+                                ConvNeXtBlock(dim, pallas=pallas, block_bwd=block_bwd))
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
         outs = []
         for i, depth in enumerate(self.depths):
             if i == 0:
@@ -127,7 +149,7 @@ class ConvNeXtFeatures(nn.Module):
                     getattr(self, f"downsample_norm{i}")(x)
                 )
             for j in range(depth):
-                x = getattr(self, f"stage{i}_block{j}")(x)
+                x = getattr(self, f"stage{i}_block{j}")(x, train)
             if i in self.out_indices:
                 outs.append(x)
         return tuple(outs)
@@ -137,14 +159,15 @@ class ConvNeXtTiny(nn.Module):
     """ConvNeXt features (strides 8/16/32) + C2f adapters to (256, 384, 512)."""
 
     def __init__(self, pallas: str = "auto", depths: Sequence[int] = TINY_DEPTHS,
-                 dims: Sequence[int] = TINY_DIMS):
+                 dims: Sequence[int] = TINY_DIMS, bn_momentum: float = BN_MOMENTUM_BODY,
+                 block_bwd: str = "auto"):
         super().__init__()
-        self.trunk = ConvNeXtFeatures(depths, dims, pallas=pallas)
-        self.c2f_p3 = C2f(dims[1], 256)
-        self.c2f_p4 = C2f(dims[2], 384)
-        self.c2f_p5 = C2f(dims[3], 512)
+        self.trunk = ConvNeXtFeatures(depths, dims, pallas=pallas, block_bwd=block_bwd)
+        self.c2f_p3 = C2f(dims[1], 256, bn_momentum=bn_momentum)
+        self.c2f_p4 = C2f(dims[2], 384, bn_momentum=bn_momentum)
+        self.c2f_p5 = C2f(dims[3], 512, bn_momentum=bn_momentum)
 
     def forward(self, x, train: bool = False):
-        p3, p4, p5 = self.trunk(x)
+        p3, p4, p5 = self.trunk(x, train)
         return (self.c2f_p3(p3, train), self.c2f_p4(p4, train),
                 self.c2f_p5(p5, train))

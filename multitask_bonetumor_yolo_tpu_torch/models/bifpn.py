@@ -14,7 +14,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .common import C2f, ConvBlock, DepthwiseConvBlock
+from .common import BN_MOMENTUM_BODY, C2f, ConvBlock, DepthwiseConvBlock
 from ..ops.resize import resize_bilinear_nchw
 
 
@@ -27,15 +27,16 @@ def _down2(x):
 
 
 class BiFPNUnit(nn.Module):
-    def __init__(self, feature_size: int = 256, eps: float = 1e-4):
+    def __init__(self, feature_size: int = 256, eps: float = 1e-4,
+                 bn_momentum: float = BN_MOMENTUM_BODY):
         super().__init__()
         fs = feature_size
         self.eps = eps
         self.w1 = nn.Parameter(torch.ones(2, 2))
         self.w2 = nn.Parameter(torch.ones(3, 2))
         for name in ("p4_td", "p3_td", "p4_out", "p5_out"):
-            self.add_module(f"{name}_conv", DepthwiseConvBlock(fs, fs))
-            self.add_module(f"{name}_cf", C2f(fs, fs))
+            self.add_module(f"{name}_conv", DepthwiseConvBlock(fs, fs, bn_momentum=bn_momentum))
+            self.add_module(f"{name}_cf", C2f(fs, fs, bn_momentum=bn_momentum))
 
     def _norm(self, w):
         w = F.elu(w)
@@ -71,13 +72,14 @@ class BiFPNUnit(nn.Module):
 
 class BiFPN(nn.Module):
     def __init__(self, in_channels=(256, 384, 512), feature_size: int = 256,
-                 num_layers: int = 2, eps: float = 1e-4):
+                 num_layers: int = 2, eps: float = 1e-4,
+                 bn_momentum: float = BN_MOMENTUM_BODY):
         super().__init__()
         self.num_layers = num_layers
         for name, cin in zip(("p3_proj", "p4_proj", "p5_proj"), in_channels):
-            self.add_module(name, ConvBlock(cin, feature_size, 1))
+            self.add_module(name, ConvBlock(cin, feature_size, 1, bn_momentum=bn_momentum))
         for i in range(num_layers):
-            self.add_module(f"unit{i}", BiFPNUnit(feature_size, eps))
+            self.add_module(f"unit{i}", BiFPNUnit(feature_size, eps, bn_momentum))
 
     def forward(self, inputs: Sequence[torch.Tensor], train: bool = False) -> List[torch.Tensor]:
         if len(inputs) != 3:

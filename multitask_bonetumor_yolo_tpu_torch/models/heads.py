@@ -1,5 +1,5 @@
 """Anchor-free Detect / Segment heads (counterpart of the JAX
-``models/heads.py``), inference form.
+``models/heads.py``).
 
 Detect: per level a box tower (Conv(c2,3) -> Conv(c2,3) -> 1x1 to
 4*reg_max) and a cls tower (Conv(c3,3) -> Conv(c3,3) -> 1x1 to nc), with
@@ -21,7 +21,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .common import BN_EPS_HEAD, ConvBN, conv2d
+from .common import BN_EPS_HEAD, BN_MOMENTUM_HEAD, ConvBN, conv2d
 from ..core.anchors import make_anchors
 from ..core.boxes import dist2bbox
 from ..core.dfl import dfl_decode
@@ -31,12 +31,12 @@ DEFAULT_STRIDES = (8, 16, 32)
 
 
 class HeadConv(nn.Module):
-    """conv(bias=False) + BN(eps 1e-3) + SiLU."""
+    """conv(bias=False) + BN(eps 1e-3, Flax momentum 0.97) + SiLU."""
 
     def __init__(self, cin: int, features: int, kernel_size: int = 1):
         super().__init__()
         self.ConvBN_0 = ConvBN(cin, features, kernel_size, use_bias=False,
-                               act="silu", bn_eps=BN_EPS_HEAD)
+                               act="silu", bn_eps=BN_EPS_HEAD, bn_momentum=BN_MOMENTUM_HEAD)
 
     @property
     def weight(self) -> torch.Tensor:
@@ -131,10 +131,12 @@ class DetectHead(nn.Module):
 
 
 class Proto(nn.Module):
-    """Prototype masks on P3: cv1 -> ConvTranspose 2x -> cv2 -> cv3. Eval
-    path: the transposed conv and cv2's 3x3 conv run composed as four phase
-    convs at P3 resolution; BN/SiLU and the 1x1 cv3 run per phase; the pixel
-    shuffle happens at nm channels."""
+    """Prototype masks on P3: cv1 -> ConvTranspose 2x -> cv2 -> cv3. The
+    transposed conv and cv2's 3x3 conv run composed as four phase convs at P3
+    resolution; cv2's BN/SiLU and cv3 run once on the four phases stacked on
+    the batch axis, so that batch statistics in training are those of the
+    full 2x map (JAX ``Proto``'s train path; in eval, per-pixel ops, the
+    same as per phase); the pixel shuffle happens at nm channels."""
 
     def __init__(self, cin: int, npr: int = 256, nm: int = 32):
         super().__init__()
@@ -148,9 +150,10 @@ class Proto(nn.Module):
         phases = fused_upsample_conv3x3_phases_nchw(
             x, self.upsample.weight, self.upsample.bias, self.cv2.weight
         )
-        out = {k: self.cv3(self.cv2(y, train, conv_input=False), train)
-               for k, y in phases.items()}
-        return shuffle_phases_nchw(out)
+        keys = list(phases)
+        z = self.cv3(self.cv2(torch.cat([phases[k] for k in keys]), train, conv_input=False),
+                     train)
+        return shuffle_phases_nchw(dict(zip(keys, z.chunk(len(keys)))))
 
 
 class SegmentHead(nn.Module):

@@ -1,20 +1,23 @@
 """Full multitask model: ConvNeXt-Tiny + BiFPN -> Detect / Segment / image-cls
-(counterpart of the JAX ``models/model.py``), inference form.
+(counterpart of the JAX ``models/model.py``).
 
-Forward contract (public layout NHWC, the JAX model's keys), for
-``train=False, mode="infer"``:
+Forward contract (public layout NHWC, the JAX model's keys):
     det_feats   list of 3 raw maps [B, H, W, 4*reg_max + nc_det]
     seg_coeffs  [B, A, nm]
     protos      [B, Hp, Wp, nm]
     seg_logits  [B, S, S, 1]   fp32 1x1 projection of protos, resized to S=img
     cls_logits  [B, nc_img]    fp32 head on pooled P5
+and with ``mode="infer"`` also
     det_preds   [B, A, 4+nc]   decoded xywh-abs boxes + sigmoid scores
     seg_preds   [B, A, 4+nc+nm]
     cls_probs   [B, nc_img]
     seg_prob    [B, S, S, 1]
-Every BatchNorm uses running statistics (body BN follows ``train=False``,
-head BN follows ``mode == "infer"``). Other modes raise
-``NotImplementedError`` until training is ported.
+Body BN follows ``train``, head BN follows ``mode == "train"`` (the
+reference's quirk, kept by the JAX model): ``train=True, mode="train"`` is the
+training forward, ``train=False, mode="train"`` the reference's validation
+forward (body BN on running statistics, heads on batch statistics),
+``train=False, mode="infer"`` inference. ``train=True, mode="infer"``, which
+nothing runs, raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ import torch.nn as nn
 
 from .backbone import ConvNeXtBlock, ConvNeXtTiny, PatchifyConv
 from .bifpn import BiFPN, BiFPNUnit
-from .common import require_eval
+from .common import BN_MOMENTUM_BODY, BN_MOMENTUM_FROZEN
 from .heads import DetectHead, DetectTowers, SegmentHead, decode_detections
 from ..ops.resize import resize_bilinear_nchw
 
@@ -45,9 +48,12 @@ class ModelConfig:
       shared memory before fc1 (no extra device-memory pass to save there).
     * ``fuse_towers``: read and ignored. The heads always run the towers'
       first 3x3 convs as one conv (exact; the JAX default).
-    * ``block_bwd``: read and ignored until the training slice (it selects
-      the block backward).
-    * ``eval_bn``: validated; it only changes BN momentum during training.
+    * ``block_bwd``: the ConvNeXt block backward per stage width, as JAX's
+      ``_bwd_for_dim``: "auto" -> K1's residual-saving form + K2 for
+      C <= 384 and eager blocks under autograd at C = 768; "fused" -> the
+      kernels on every stage; "ref" -> eager blocks everywhere in training.
+    * ``eval_bn``: the body BN momentum in training ("reference": Flax 3e-4,
+      "frozen": 0.9); the heads keep theirs.
     """
 
     nc_det: int = 2
@@ -79,8 +85,10 @@ class MultitaskModel(nn.Module):
             raise ValueError(f"unknown eval_bn {cfg.eval_bn!r}")
         self.cfg = cfg
         fs = cfg.bifpn_feature_size
-        self.backbone = ConvNeXtTiny(cfg.pallas, cfg.backbone_depths, cfg.backbone_dims)
-        self.neck = BiFPN((256, 384, 512), fs, cfg.bifpn_num_layers)
+        bm = BN_MOMENTUM_FROZEN if cfg.eval_bn == "frozen" else BN_MOMENTUM_BODY
+        self.backbone = ConvNeXtTiny(cfg.pallas, cfg.backbone_depths, cfg.backbone_dims,
+                                     bm, cfg.block_bwd)
+        self.neck = BiFPN((256, 384, 512), fs, cfg.bifpn_num_layers, bn_momentum=bm)
         self.segment = SegmentHead(cfg.nc_det, cfg.proto_ch, fs, fs, (fs,) * 3,
                                    reg_max=cfg.reg_max)
         if not cfg.single_head:
@@ -92,15 +100,17 @@ class MultitaskModel(nn.Module):
         """``x``: NHWC [B, S, S, 3] float images in [0, 1]."""
         if mode not in ("train", "infer"):
             raise ValueError(f"Unknown mode {mode!r}. Expected 'train' or 'infer'.")
-        require_eval(train or mode == "train")
+        if train and mode == "infer":
+            raise NotImplementedError("train=True with mode='infer' is not ported")
         cfg = self.cfg
         dt = cfg.compute_dtype
+        head_train = mode == "train"
         nhwc = lambda t: t.permute(0, 2, 3, 1)  # noqa: E731  channels_last view
         x = x.to(dt).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
 
-        feats = self.neck(list(self.backbone(x)))
-        seg_det_raw, seg_coeffs, protos = self.segment(feats)
-        det_raw = seg_det_raw if cfg.single_head else self.detect(feats)
+        feats = self.neck(list(self.backbone(x, train)), train)
+        seg_det_raw, seg_coeffs, protos = self.segment(feats, head_train)
+        det_raw = seg_det_raw if cfg.single_head else self.detect(feats, head_train)
 
         pooled = feats[2].float().mean(dim=(2, 3))
         cls_logits = self.cls_fc(pooled)
@@ -109,6 +119,15 @@ class MultitaskModel(nn.Module):
         )
 
         det_feats = [nhwc(t) for t in det_raw]
+        out = {
+            "det_feats": det_feats,
+            "seg_coeffs": seg_coeffs,
+            "protos": nhwc(protos),
+            "seg_logits": nhwc(seg_logits),
+            "cls_logits": cls_logits,
+        }
+        if mode == "train":
+            return out
         seg_preds_det = decode_detections(
             [nhwc(t) for t in seg_det_raw], cfg.nc_det, cfg.img_size, cfg.reg_max
         )
@@ -117,17 +136,13 @@ class MultitaskModel(nn.Module):
             det_preds = seg_preds[..., : 4 + cfg.nc_det]
         else:
             det_preds = decode_detections(det_feats, cfg.nc_det, cfg.img_size, cfg.reg_max)
-        return {
-            "det_feats": det_feats,
-            "seg_coeffs": seg_coeffs,
-            "protos": nhwc(protos),
-            "seg_logits": nhwc(seg_logits),
-            "cls_logits": cls_logits,
-            "det_preds": det_preds,
-            "seg_preds": seg_preds,
-            "cls_probs": torch.softmax(cls_logits, dim=-1),
-            "seg_prob": nhwc(torch.sigmoid(seg_logits)),
-        }
+        out.update(
+            det_preds=det_preds,
+            seg_preds=seg_preds,
+            cls_probs=torch.softmax(cls_logits, dim=-1),
+            seg_prob=nhwc(torch.sigmoid(seg_logits)),
+        )
+        return out
 
 
 @torch.no_grad()

@@ -59,7 +59,11 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
+    """The library's path, named by a hash of the source, the shared headers
+    (``csrc/*.cuh``) and the flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
+    for header in sorted(CSRC.glob("*.cuh")):
+        src += header.read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 

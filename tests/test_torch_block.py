@@ -18,6 +18,7 @@ from multitask_bonetumor_yolo_tpu.ops.pallas.convnext_block import (
     convnext_block_ref as jax_convnext_block_ref,
 )
 from multitask_bonetumor_yolo_tpu_torch.ops.kernels import convnext_block as port
+from test_torch_model import one_torch_thread  # noqa: F401 (autouse)
 
 
 def make_args(seed, b=2, h=16, w=16, c=32):

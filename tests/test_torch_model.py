@@ -7,7 +7,15 @@ BiFPN 64, proto 8) with every parameter and BN statistic perturbed, run with
 its weights go through the bridge into the port, which runs the same input
 in fp32 on the CPU. Every output key must agree at the oracle tolerances
 (atol 2e-3, rtol 1e-3).
+
+The weights come from the port's seeded initialisation (the Flax
+initialisers' distributions, ``models/model.py::init_parameters``), perturbed
+with numpy, and reach the JAX model through the inverse of the bridge
+(:func:`jax_variables`): initialising the JAX model op by op takes ~40 s on
+the CPU, tracing it for its shapes ~3 s.
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -19,7 +27,7 @@ import jax.numpy as jnp
 from multitask_bonetumor_yolo_tpu.models import ModelConfig as JaxModelConfig
 from multitask_bonetumor_yolo_tpu.models import MultitaskModel as JaxMultitaskModel
 from multitask_bonetumor_yolo_tpu_torch.bridge import flax_to_torch, load_npz, save_npz
-from multitask_bonetumor_yolo_tpu_torch.models import ModelConfig, MultitaskModel
+from multitask_bonetumor_yolo_tpu_torch.models import ModelConfig, MultitaskModel, build_model
 
 IMG = 160
 B = 2
@@ -32,29 +40,66 @@ KEYS = ("det_feats", "seg_coeffs", "protos", "seg_logits", "cls_logits",
         "det_preds", "seg_preds", "cls_probs", "seg_prob")
 
 
-def _randomize(variables, seed=0):
-    """Perturb every param/stat (as tests/test_reference_oracle.py does), so
-    BN stats, LN scales and layer-scale gammas are non-degenerate."""
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """torch single-threaded in this module and in the port's other test
+    modules, which import this fixture. The suite runs in several worker
+    processes on one machine, and torch's default of one OpenMP thread per
+    core oversubscribes it: beside six busy processes on 8 cores the train
+    slice's tests took 20-50 s each instead of ~1 s."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def jax_variables(cfg, seed=0):
+    """Flax ``{params, batch_stats}`` for ``JaxModelConfig(**cfg)``: the
+    port's weights from ``build_model(seed)`` with every parameter and BN
+    statistic perturbed as tests/test_reference_oracle.py does (running
+    variances x U(0.7, 1.4), everything else + 0.05 N(0, 1)), so BN stats,
+    LN scales and layer-scale gammas are non-degenerate.
+
+    The bridge's per-leaf rules are transposes and flips, so its inverse is
+    read off the bridge applied to Flax trees holding each element's own
+    index (exact in fp32 below 2^24 elements)."""
+    shapes = jax.eval_shape(
+        lambda x: JaxMultitaskModel(JaxModelConfig(**cfg)).init(
+            jax.random.PRNGKey(0), x, train=False, mode="train"),
+        jax.ShapeDtypeStruct((1, cfg["img_size"], cfg["img_size"], 3), jnp.float32))
+    leaves, treedef = jax.tree.flatten(shapes)
+    ends = np.cumsum([math.prod(leaf.shape) for leaf in leaves])
+    starts = ends - [math.prod(leaf.shape) for leaf in leaves]
+    assert ends[-1] < 2 ** 24
+    coded = jax.tree.unflatten(treedef, [
+        np.arange(a, b, dtype=np.float32).reshape(leaf.shape)
+        for a, b, leaf in zip(starts, ends, leaves)])
+    index = flax_to_torch(coded["params"], coded["batch_stats"])
+    sd = build_model(ModelConfig(**cfg), seed=seed).state_dict()
     rs = np.random.RandomState(seed)
-
-    def perturb(path, x):
-        x = np.asarray(x, np.float32)
-        if getattr(path[-1], "key", None) == "var":
-            return x * rs.uniform(0.7, 1.4, x.shape).astype(np.float32)
-        return x + 0.05 * rs.randn(*x.shape).astype(np.float32)
-
-    return jax.tree_util.tree_map_with_path(perturb, variables)
+    flat = np.full(ends[-1], np.nan, np.float32)
+    for key, idx in index.items():
+        if key.endswith("num_batches_tracked"):
+            continue
+        v = sd[key].numpy()
+        if key.endswith("running_var"):
+            v = v * rs.uniform(0.7, 1.4, v.shape)
+        else:
+            v = v + 0.05 * rs.randn(*v.shape)
+        flat[idx.numpy().astype(np.int64)] = v
+    assert not np.isnan(flat).any()
+    return jax.tree.unflatten(treedef, [flat[a:b].reshape(leaf.shape)
+                                        for a, b, leaf in zip(starts, ends, leaves)])
 
 
 @pytest.fixture(scope="module")
 def jax_run():
     model = JaxMultitaskModel(JaxModelConfig(**CFG))
     x = np.random.RandomState(1).rand(B, IMG, IMG, 3).astype(np.float32)
+    variables = jax_variables(CFG)
     with jax.default_matmul_precision("highest"):
-        variables = model.init(jax.random.PRNGKey(0), jnp.asarray(x),
-                               train=False, mode="train")
-        variables = _randomize(dict(variables))
-        out = model.apply(variables, jnp.asarray(x), train=False, mode="infer")
+        out = jax.jit(lambda v, x: model.apply(v, x, train=False, mode="infer"))(
+            variables, jnp.asarray(x))
     params = jax.tree.map(np.asarray, variables["params"])
     stats = jax.tree.map(np.asarray, variables["batch_stats"])
     return x, out, params, stats
@@ -133,12 +178,14 @@ def test_v2_single_head_slices_seg_preds(jax_run):
 
 
 def test_train_modes_raise():
+    """The train modes are ported (tests/test_torch_train.py); the one
+    combination nothing runs still raises, and so does an unknown mode."""
     model = MultitaskModel(ModelConfig(**CFG))
     x = torch.zeros(1, IMG, IMG, 3)
     with pytest.raises(NotImplementedError):
         model(x, train=True, mode="infer")
-    with pytest.raises(NotImplementedError):
-        model(x, train=False, mode="train")
+    with pytest.raises(ValueError):
+        model(x, train=False, mode="eval")
 
 
 def test_infer_batch_serves_uint8_images(jax_run):

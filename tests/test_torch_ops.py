@@ -29,6 +29,7 @@ from multitask_bonetumor_yolo_tpu.ops import resize as j_resize
 from multitask_bonetumor_yolo_tpu_torch.bridge import flax_to_torch
 from multitask_bonetumor_yolo_tpu_torch.core import anchors, boxes, dfl
 from multitask_bonetumor_yolo_tpu_torch.ops import fused_upsample, masks, nms, resize
+from test_torch_model import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -189,3 +190,14 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_infer_cli_needs_a_card_unless_told_cpu(tmp_path, monkeypatch):
+    """``cli.infer.main`` runs on the card by default: without one it raises
+    before loading anything, instead of falling back to the CPU."""
+    from multitask_bonetumor_yolo_tpu_torch.cli import infer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        infer.main(["--checkpoint-path", str(tmp_path / "missing.npz"),
+                    "--images", "x.jpeg", "--out-dir", str(tmp_path)])
