@@ -6,7 +6,8 @@ Phases (any failure raises, so the exit code is non-zero and no result line
 is printed):
   1. record the card (``nvidia-smi`` name and power limit);
   2. build the kernels from ``csrc/``, one nvcc per source, all at once: the
-     ConvNeXt-block forward (K1) and the block backward (K2); time the builds;
+     ConvNeXt-block forward (K1), the block backwards (K2 and K4, one
+     source) and the standalone depthwise 7x7 (K3); time the builds;
   3. K1 against its plain twin at the four 640^2 stage shapes (batch 2),
      an odd non-square shape and a narrow (C=48) one, in bf16 (atol/rtol 3e-2) and fp32 (atol/rtol
      1e-2: the kernel's products run in TF32, the twin in full fp32); then
@@ -52,9 +53,28 @@ is printed):
      ``pallas="off"`` and ``"auto"`` (K1 + K2), with images/s at the median
      turn and peak memory; then each side under ``torch.profiler`` over 3
      steps: device kernel time per step by category, kernels per step and
-     the device's idle share ("[profile]").
+     the device's idle share ("[profile]");
+ 10. K3 against ``F.conv2d(groups=C)`` on the fp32 input (TF32 off) with the
+     taps and with the flipped taps (the explicit backward's two calls), at
+     the stage shapes at batch 2 and 8, the odd shape and C=48, bf16
+     (atol/rtol 3e-2) and fp32 (1e-2); then K3 (CUDA events, and its kernel
+     alone under ``torch.profiler``), its plain version and cuDNN's
+     depthwise convolution timed at the batch-8 stage shapes;
+ 11. K4 against its plain version at the shapes of phase 6 and at batch 8 at
+     all four stages (K2's tolerances); then K4, its plain version and the
+     eager block's autograd backward timed at the batch-8 stage shapes;
+ 12. "[block-fwdbwd]", one block's forward plus backward at the batch-8
+     stage shapes, bf16, x and every parameter requiring grad, under the
+     five routes ``"ref"``, eager autograd, ``"fused"``, ``"fused_v1"`` and
+     ``"explicit"``: the launches per block over a pass of the trunk's 18
+     blocks (1 of K1 and 1 of K4 under "fused_v1", 1 of K1 and 2 of K3 under
+     "explicit"), CUDA-event times in two turns and trunk totals weighted by
+     the depths 3/3/9/3; then the gradients of "fused_v1" and "explicit" at
+     batch 2 in fp32 against fp32 eager autograd (dx atol/rtol 5e-3,
+     parameter gradients 2e-2 of their scale: the tanh/erf GELU gap).
 Each phase sets the launch counts to 0 right before the path it drives and
-reads them right after. Prints the kernels' JSON line, the card's line, and
+reads them right after; the K3 and K4 launches of the kernels line are
+those of phase 12's pass over the trunk. Prints the kernels' JSON line, the card's line, and
 last ``{"ok": true, "device": {...}}``.
 """
 
@@ -68,6 +88,7 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 
 import torch
+import torch.nn.functional as F
 
 SEED = 0
 IMG = 640
@@ -105,6 +126,26 @@ def cuda_ms(fn, iters=20, warmup=3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, key="", iters=20) -> float:
+    """Device time per call of the kernels whose name holds ``key`` (every
+    kernel of the call for the empty key; ``torch.profiler``, after one
+    warm-up call): the kernels alone, without the host's share of a call,
+    which CUDA events around back-to-back calls take in when the host issues
+    the calls slower than the device runs them."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.device_time for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA and key in e.name)
+    if total <= 0:
+        raise RuntimeError(f"the profiler recorded no device time for {key or 'the call'}")
+    return total / 1e3 / iters
 
 
 def block_args(gen, b, h, w, c, dtype, dev):
@@ -171,6 +212,22 @@ def k2_bound(b, h, w, c):
     p = b * h * w
     nbytes = 2 * p * c * 4 + 2 * 4 * (8 * c * c + 49 * c + 9 * c)
     return bound(nbytes, 40 * c * c * p, 2 * 98 * c * p)
+
+
+def k3_bound(b, h, w, c):
+    """K3 at bf16: x in, the fp32 output out, the fp32 taps in; 98 C flop per
+    pixel on the fp32 units."""
+    p = b * h * w
+    return bound(2 * p * c + 4 * p * c + 4 * 49 * c, 0, 98 * c * p)
+
+
+def k4_bound(b, h, w, c):
+    """K4 at bf16: x and g in and dx out; fp32 raw parameters in and their
+    gradients out; K2's five products of 8 C^2 flop per pixel, and three 7x7
+    passes of 98 C (the recompute of y, dx and the taps' gradient)."""
+    p = b * h * w
+    nbytes = 2 * p * c * 3 + 2 * 4 * (8 * c * c + 49 * c + 9 * c)
+    return bound(nbytes, 40 * c * c * p, 3 * 98 * c * p)
 
 
 def phase_kernel(cnb, dev, gen):
@@ -469,11 +526,210 @@ def phase_training_kernels(cnb, k2, dev, gen):
     return err_sav, err_dx, err_scale, per_stage, totals
 
 
+def phase_dwconv(k3, dev, gen):
+    """K3 against its plain version, both calls of the explicit backward (the
+    taps and the flipped taps), then K3, its plain version and cuDNN's
+    depthwise convolution timed at the batch-8 stage shapes."""
+    torch.backends.cudnn.allow_tf32 = False
+    # fp32 at FP32_TOL, the script's fp32 tolerance: K3 sums exact fp32
+    # products in fp32 like its plain version (no TF32 anywhere), so its
+    # fp32 errors are ~1e-6 (printed); the bound is shared with the kernels
+    # whose fp32 products run in TF32
+    shapes = ([(b, s, s, c) for b in (2, TRAIN_BATCH) for c, s, _ in STAGES]
+              + [(1, 13, 21, 96), (3, 7, 5, 48)])
+    max_err = 0.0
+    for shape in shapes:
+        for dt, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, FP32_TOL)):
+            x = torch.randn(shape, generator=gen, device=dev).to(dt)
+            taps = torch.randn(7, 7, shape[-1], generator=gen, device=dev) * 0.1
+            errs = []
+            for name, t in (("taps", taps), ("flipped taps", taps.flip(0, 1))):
+                got = k3.dwconv7(x, t)
+                want = k3.dwconv7_plain(x, t)
+                torch.cuda.synchronize()
+                errs.append(check_close(f"K3 {shape} {dt} {name}", got, want, tol))
+            if dt == torch.bfloat16:
+                max_err = max(max_err, *errs)
+            log(f"[k3] {shape} {str(dt):15s} max_abs_err {errs[0]:.3e}, flipped taps "
+                f"{errs[1]:.3e} (tol {tol})")
+
+    per_stage = []
+    for c, s, depth in STAGES:
+        shape = (TRAIN_BATCH, s, s, c)
+        x = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        taps = torch.randn(7, 7, c, generator=gen, device=dev) * 0.1
+        xf = x.float()
+        w = taps.permute(2, 0, 1).reshape(c, 1, 7, 7).contiguous()
+        t_k3 = cuda_ms(lambda: k3.dwconv7(x, taps))
+        t_plain = cuda_ms(lambda: k3.dwconv7_plain(x, taps))
+        t_lib = cuda_ms(lambda: F.conv2d(xf.permute(0, 3, 1, 2), w, padding=3, groups=c))
+        t_k3b = cuda_ms(lambda: k3.dwconv7(x, taps))
+        t_dev = device_ms(lambda: k3.dwconv7(x, taps), "cnb_dwconv7")
+        b_ms, b_by = k3_bound(*shape)
+        per_stage.append({"shape": list(shape), "ms": (t_k3 + t_k3b) / 2, "plain_ms": t_plain,
+                          "library_ms": t_lib, "bound_ms": b_ms, "bound_by": b_by,
+                          "device_ms": t_dev})
+        log(f"[k3-time] {shape} bf16 in, fp32 out: K3 {t_k3:.4f}/{t_k3b:.4f} ms (its kernel "
+            f"alone {t_dev:.4f} ms on the device; bound {b_ms:.4f} ms, {b_by}), plain "
+            f"{t_plain:.4f} ms, cuDNN depthwise F.conv2d on the fp32 input {t_lib:.4f} ms")
+    return max_err, per_stage
+
+
+def phase_bwd_v1(cnb, k2, dev, gen):
+    """K4 against its plain version (batch 2 at the stage shapes, the odd
+    shape and C=48, bf16 and fp32; the batch-8 stage shapes in bf16), then
+    K4, its plain version and the eager block's autograd backward timed at
+    the batch-8 stage shapes."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    shapes = [(2, s, s, c) for c, s, _ in STAGES] + [(1, 13, 21, 96), (3, 7, 5, 48)]
+    cases = [(shape, dt, tol) for shape in shapes
+             for dt, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, FP32_TOL))]
+    cases += [((TRAIN_BATCH, s, s, c), torch.bfloat16, BF16_TOL) for c, s, _ in STAGES]
+    err_dx, err_scale = 0.0, 0.0
+    for shape, dt, tol in cases:
+        x, *params = block_args(gen, *shape, dt, dev)
+        g = torch.randn(shape, generator=gen, device=dev).to(dt)
+        got = k2.convnext_block_bwd_v1(x, g, *params)
+        want = k2.convnext_block_bwd_v1_plain(x, g, *params)
+        torch.cuda.synchronize()
+        e_dx, e_sc = check_grads(f"K4 {shape} {dt}", got, want, tol)
+        if dt == torch.bfloat16:
+            err_dx, err_scale = max(err_dx, e_dx), max(err_scale, e_sc)
+        log(f"[k4] {shape} {str(dt):15s} dx {e_dx:.3e}, gradients {e_sc:.3e} of scale "
+            f"(tol {tol})")
+        del got, want
+
+    per_stage = []
+    for c, s, depth in STAGES:
+        shape = (TRAIN_BATCH, s, s, c)
+        x, *params = block_args(gen, *shape, torch.bfloat16, dev)
+        g = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        leaves = [t.detach().requires_grad_() for t in (x, *params)]
+        ref_out = cnb.convnext_block_ref(*leaves)
+        t_k4 = cuda_ms(lambda: k2.convnext_block_bwd_v1(x, g, *params))
+        t_plain = cuda_ms(lambda: k2.convnext_block_bwd_v1_plain(x, g, *params), iters=5)
+        t_eager = cuda_ms(lambda: torch.autograd.grad(ref_out, leaves, g, retain_graph=True))
+        t_k4b = cuda_ms(lambda: k2.convnext_block_bwd_v1(x, g, *params))
+        b_ms, b_by = k4_bound(*shape)
+        per_stage.append({"shape": list(shape), "ms": (t_k4 + t_k4b) / 2, "plain_ms": t_plain,
+                          "eager_bwd_ms": t_eager, "bound_ms": b_ms, "bound_by": b_by})
+        log(f"[k4-time] {shape} bf16: K4 {t_k4:.4f}/{t_k4b:.4f} ms (bound {b_ms:.4f} ms, "
+            f"{b_by}), plain {t_plain:.4f} ms, eager autograd backward {t_eager:.4f} ms")
+    return err_dx, err_scale, per_stage
+
+
+# The five block fwd+bwd routes of the per-stage phase: the autograd routes
+# of ``convnext_block`` by their ``bwd`` value, and "eager" (pallas="off":
+# autograd of the eager erf block)
+FWDBWD_ROUTES = ("ref", "eager", "fused", "fused_v1", "explicit")
+# per block: (K1, K1 saving, K2, K4, K3) launches
+FWDBWD_LAUNCHES = {"ref": (1, 0, 0, 0, 0), "eager": (0, 0, 0, 0, 0), "fused": (0, 1, 1, 0, 0),
+                   "fused_v1": (1, 0, 0, 1, 0), "explicit": (1, 0, 0, 0, 2)}
+
+
+def block_fwd_bwd(cnb, route, leaves, g):
+    if route == "eager":
+        out = cnb.convnext_block_ref(*leaves)
+    else:
+        out = cnb.convnext_block(*leaves, bwd=route)
+    return torch.autograd.grad(out, leaves, g)
+
+
+def phase_block_fwdbwd(cnb, k2, k3, dev, gen):
+    """One block's forward plus backward at the batch-8 640^2 stage shapes,
+    bf16, every parameter and x requiring grad, under the five routes (the
+    port of scripts/profile_train.py's per-stage block fwd+bwd): launch
+    counts over a pass of the trunk's 18 blocks, CUDA-event times, trunk
+    totals weighted by the depths; then each new route's gradient at batch 2
+    in fp32 against the fp32 eager autograd gradient."""
+    counts = (cnb.convnext_block, cnb.convnext_block_saving, k2.convnext_block_bwd,
+              k2.convnext_block_bwd_v1, k3.dwconv7)
+    launches = {r: [0] * len(counts) for r in FWDBWD_ROUTES}
+    table = []
+    totals = {r + sfx: 0.0 for r in FWDBWD_ROUTES for sfx in ("", "_device")}
+    for c, s, depth in STAGES:
+        shape = (TRAIN_BATCH, s, s, c)
+        x, *params = block_args(gen, *shape, torch.bfloat16, dev)
+        leaves = [t.requires_grad_() for t in (x, *params)]
+        g = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        for route in FWDBWD_ROUTES:  # the stage's blocks, as a pass of the trunk runs them
+            reset_counts(*counts)
+            for _ in range(depth):
+                grads = block_fwd_bwd(cnb, route, leaves, g)
+            torch.cuda.synchronize()
+            got = tuple(fn.launches for fn in counts)
+            want = tuple(depth * n for n in FWDBWD_LAUNCHES[route])
+            if got != want:
+                raise RuntimeError(f"[block-fwdbwd] {shape} {route}: launches (K1, K1 saving, "
+                                   f"K2, K4, K3) {got}, want {want}")
+            if not all(torch.isfinite(t).all() for t in grads):
+                raise RuntimeError(f"[block-fwdbwd] {shape} {route}: non-finite gradients")
+            launches[route] = [a + b for a, b in zip(launches[route], got)]
+        times = {r: [] for r in FWDBWD_ROUTES}
+        for route in FWDBWD_ROUTES + FWDBWD_ROUTES[::-1]:  # two turns, in turns
+            times[route].append(cuda_ms(lambda: block_fwd_bwd(cnb, route, leaves, g), iters=10))
+        # the explicit backward's plain taps' gradient (49 shifted sums),
+        # which eager PyTorch runs as 49 unfused products and reductions
+        d_y = torch.randn(shape, generator=gen, device=dev)
+        t_taps = cuda_ms(lambda: k2.taps_grad(x, d_y), iters=5)
+        row = {"shape": list(shape), "depth": depth, "explicit_taps_grad_ms": t_taps}
+        for route in FWDBWD_ROUTES:
+            # device time alone: at the narrow stages the host issues a
+            # route's ~20-200 launches slower than the device runs them
+            dev_ms = device_ms(lambda: block_fwd_bwd(cnb, route, leaves, g), iters=5)
+            row[route] = sum(times[route]) / 2
+            row[f"{route}_device_ms"] = dev_ms
+            totals[route] += depth * row[route]
+            totals[f"{route}_device"] += depth * dev_ms
+        table.append(row)
+        log(f"[block-fwdbwd] {shape} bf16 fwd+bwd ms per block (CUDA events, two turns; "
+            f"device time alone): " + ", ".join(
+                f"{r} {times[r][0]:.4f}/{times[r][1]:.4f}; {row[r + '_device_ms']:.4f}"
+                for r in FWDBWD_ROUTES)
+            + f"; the explicit route's 49 shifted sums {t_taps:.4f}")
+    log("[block-fwdbwd] trunk (depths 3/3/9/3) fwd+bwd ms (CUDA events; device time alone): "
+        + ", ".join(f"{r} {totals[r]:.3f}; {totals[r + '_device']:.3f}" for r in FWDBWD_ROUTES))
+
+    # the new routes' gradients against fp32 eager autograd at batch 2, fp32
+    # with TF32 off (K1's and K4's products still run in TF32): within the
+    # tanh/erf GELU gap, the JAX package's tolerances for its fused backward
+    # against the vjp of the reference (tests/test_pallas_convnext.py:
+    # 178-202): dx 5e-3, parameter gradients 2e-2 of their own scale
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    grad_err = {}
+    for c, s, _ in STAGES:
+        shape = (2, s, s, c)
+        x, *params = block_args(gen, *shape, torch.float32, dev)
+        leaves = [t.requires_grad_() for t in (x, *params)]
+        g = torch.randn(shape, generator=gen, device=dev)
+        want = block_fwd_bwd(cnb, "eager", leaves, g)
+        for route in ("fused_v1", "explicit"):
+            got = block_fwd_bwd(cnb, route, leaves, g)
+            torch.cuda.synchronize()
+            e_dx = check_close(f"[block-fwdbwd] {shape} {route} dx", got[0], want[0], 5e-3)
+            e_sc = 0.0
+            for i, (a, b) in enumerate(zip(got[1:], want[1:]), 1):
+                scale = b.abs().max().item()
+                err = (a - b).abs().max().item()
+                if not torch.isfinite(a).all() or err > 2e-2 * scale:
+                    raise RuntimeError(f"[block-fwdbwd] {shape} {route} gradient {i}: max abs "
+                                       f"err {err:.3e} > 2e-2 x {scale:.3e}")
+                e_sc = max(e_sc, err / scale)
+            grad_err[route] = max(grad_err.get(route, 0.0), e_sc)
+            log(f"[block-fwdbwd] {shape} fp32 {route} vs eager autograd: dx {e_dx:.3e} "
+                f"(tol 5e-3), gradients {e_sc:.3e} of scale (tol 2e-2)")
+    return launches, table, totals, grad_err
+
+
 # Device kernels by category, first match wins, against the lower-cased
 # demangled name. The port's kernels carry their own prefixes (K1
-# ``cnb_forward_kernel``, K2 ``cnb_bwd_*_kernel``), which no PyTorch kernel has.
+# ``cnb_forward_kernel``, K2 and K4 ``cnb_bwd_*_kernel``, K3
+# ``cnb_dwconv7_kernel``), which no PyTorch kernel has.
 CATEGORIES = (
     ("K1 (convnext_block.cu)", ("cnb_forward_kernel",)),
+    ("K3 (dwconv.cuh)", ("cnb_dwconv7",)),
     ("K2 (convnext_block_bwd.cu)", ("cnb_bwd_",)),
     ("optimizer (foreach, flat AdamW)", ("foreach", "multi_tensor")),
     ("BatchNorm (incl. the running-statistics pass)",
@@ -662,6 +918,16 @@ def phase_train(cnb, k2, dev, gen):
     return launches["auto"]
 
 
+def path_totals(per_stage, per_block, keys):
+    """Per-launch stage numbers summed over the trunk's launches (``per_block``
+    launches in each of a stage's ``depth`` blocks): each time in ``keys`` and
+    the bound, bound by what bounds most of it."""
+    stages = [(c, s, per_block * d) for c, s, d in STAGES]
+    out = {k: sum(n * row[k] for (_, _, n), row in zip(stages, per_stage)) for k in keys}
+    b_ms, b_by = depth_sum([(row["bound_ms"], row["bound_by"]) for row in per_stage], stages)
+    return {**out, "bound_ms": b_ms, "bound_by": b_by}
+
+
 def timed_build(name):
     from multitask_bonetumor_yolo_tpu_torch.ops.kernels import build
 
@@ -677,11 +943,12 @@ def main() -> int:
         return 1
     from multitask_bonetumor_yolo_tpu_torch.ops.kernels import convnext_block as cnb
     from multitask_bonetumor_yolo_tpu_torch.ops.kernels import convnext_block_bwd as k2
+    from multitask_bonetumor_yolo_tpu_torch.ops.kernels import dwconv as k3
 
     card = card_line()
     log(f"[card] {card}; torch {torch.__version__} cuda {torch.version.cuda}")
     dev = torch.device("cuda", 0)
-    names = ("convnext_block", "convnext_block_bwd")
+    names = ("convnext_block", "convnext_block_bwd", "dwconv")
     with ThreadPoolExecutor(len(names)) as ex:
         builds = dict(zip(names, ex.map(timed_build, names)))
     for name, (path, report, secs) in builds.items():
@@ -695,6 +962,9 @@ def main() -> int:
     launches = phase_model(cnb, dev, gen)
     err_sav, err_dx, err_scale, bwd_stages, tot = phase_training_kernels(cnb, k2, dev, gen)
     _, n_saving, n_bwd = phase_train(cnb, k2, dev, gen)
+    err_k3, k3_stages = phase_dwconv(k3, dev, gen)
+    err_k4_dx, err_k4_scale, k4_stages = phase_bwd_v1(cnb, k2, dev, gen)
+    fb_launches, fb_table, fb_totals, fb_grad_err = phase_block_fwdbwd(cnb, k2, k3, dev, gen)
 
     infer_bound = depth_sum([k1_bound(BATCH, s, s, c) for c, s, _ in STAGES], STAGES)
     common = {"route": "cuda", "library_ms": None}
@@ -716,7 +986,23 @@ def main() -> int:
          "launches": n_bwd, "max_abs_err": err_dx, "grad_err_of_scale": err_scale,
          "ms": tot["k2"], "plain_ms": tot["plain"], "bound_ms": tot["bound"][0],
          "bound_by": tot["bound"][1], "eager_bwd_ms": tot["eager"], "per_stage": bwd_stages},
+        {"name": "dwconv7", "route": "cuda",
+         "source": "multitask_bonetumor_yolo_tpu_torch/csrc/dwconv.cu",
+         "replaces": "multitask_bonetumor_yolo_tpu/ops/pallas/dwconv.py:25",
+         "launches": fb_launches["explicit"][4], "max_abs_err": err_k3,
+         **path_totals(k3_stages, 2, ("ms", "plain_ms", "library_ms")),
+         "per_stage": k3_stages},
+        {"name": "convnext_block_bwd_v1", **common,
+         "source": "multitask_bonetumor_yolo_tpu_torch/csrc/convnext_block_bwd.cu",
+         "replaces": "multitask_bonetumor_yolo_tpu/ops/pallas/convnext_block_bwd.py:43",
+         "launches": fb_launches["fused_v1"][3], "max_abs_err": err_k4_dx,
+         "grad_err_of_scale": err_k4_scale,
+         **path_totals(k4_stages, 1, ("ms", "plain_ms", "eager_bwd_ms")),
+         "per_stage": k4_stages},
     ]}))
+    log("[block-fwdbwd] " + json.dumps({"per_stage": fb_table, "trunk_ms": fb_totals,
+                                         "launches (K1, K1 saving, K2, K4, K3)": fb_launches,
+                                         "grad_err_of_scale": fb_grad_err}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -59,10 +59,33 @@
 // read twice, d_z in fp32): ~0.5 ms at batch 8, bytes-bound, not
 // operations-bound. Keeping d_h and a on chip needs the weight gradients
 // reduced across CTAs from registers (a later PR).
+//
+// Kernel K4, the recompute-form backward (cnb_backward_v1), is the same
+// pipeline under the template flag V1. It replaces the TPU kernel
+// multitask_bonetumor_yolo_tpu/ops/pallas/convnext_block_bwd.py::_kernel
+// (driven by fused_block_bwd), which takes no saved y and whose math differs:
+//
+//   y   = dwconv7x7(x) + b_dw in fp32, recomputed, never rounded to dt
+//   z2d = dt(z * ln_scale + ln_bias),  h1 = z2d @ dt(w1) + b1  (raw w1, no fold)
+//   do  = g * gamma (fp32),  d_a = dt(do) @ dt(w2)^T
+//   d_z2 = dt(d_h) @ dt(w1)^T,  d_z = d_z2 * ln_scale,  o = dt(a) @ dt(w2) + b2
+//   db2 = sum do (fp32), the other grads, d_y, dx and the taps' gradient as above.
+//
+// The TPU kernel recomputes y per row chunk from a +-6-row x halo (and
+// carries a +-3-row g halo) because its sequential grid sums the gradients
+// chunk by chunk; on Hopper the CTAs run in parallel, so K4 recomputes y for
+// the whole tensor first, into an fp32 workspace, with the depthwise kernel
+// of csrc/dwconv.cuh (K3's device code, plus the bias), and then runs the
+// passes above: prep reads the fp32 y; the hidden product takes z2d and
+// dt(do) with the raw weights (the host passes them in the folded weights'
+// slots); the channel product computes two products (d_z2, o) and d_z in
+// its epilogue; d_y reads the fp32 y. Its bound is K2's products plus a
+// third 7x7 pass (the recompute of y): at batch 8 the products still bound it.
 
 #include <type_traits>
 
 #include "cuda_common.cuh"
+#include "dwconv.cuh"
 
 namespace {
 
@@ -82,10 +105,12 @@ __host__ __device__ constexpr int cdiv(long long a, long long b) { return int((a
 // ---- prep: per pixel LN moments from y, the compute-dtype operands -------
 // One warp per pixel, lanes over channels. Writes z (dt), z2 = dt(z * lns +
 // lnb), do = dt(g * gamma), mean and r per pixel, and the CTA's partial of
-// db2 = sum over its pixels of do.
-template <typename T>
+// db2 = sum over its pixels of do. V1: y is the fp32 recompute (TY = float),
+// z is not written (the hidden product takes z2) and db2 sums g * gamma
+// before its rounding to dt.
+template <typename T, typename TY, bool V1>
 __global__ void __launch_bounds__(NT)
-cnb_bwd_prep_kernel(const T* __restrict__ y, const T* __restrict__ g, const float* __restrict__ lns,
+cnb_bwd_prep_kernel(const TY* __restrict__ y, const T* __restrict__ g, const float* __restrict__ lns,
                     const float* __restrict__ lnb, const float* __restrict__ gamma, T* __restrict__ zd,
                     T* __restrict__ z2d, T* __restrict__ dod, float* __restrict__ mean_o,
                     float* __restrict__ rstd_o, float* __restrict__ db2_part, int P, int C, float eps) {
@@ -125,11 +150,12 @@ cnb_bwd_prep_kernel(const T* __restrict__ y, const T* __restrict__ g, const floa
       const int c = lane + 32 * j;
       if (j < nj && c < C) {
         const float z = (yv[j] - mean) * r;
-        zd[row + c] = from_f<T>(z);
+        if (!V1) zd[row + c] = from_f<T>(z);
         z2d[row + c] = from_f<T>(z * lns[c] + lnb[c]);
-        const T d = from_f<T>(to_f(g[row + c]) * gamma[c]);
+        const float df = to_f(g[row + c]) * gamma[c];
+        const T d = from_f<T>(df);
         dod[row + c] = d;
-        acc[j] += to_f(d);
+        acc[j] += V1 ? df : to_f(d);
       }
     }
   }
@@ -154,7 +180,7 @@ cnb_bwd_prep_kernel(const T* __restrict__ y, const T* __restrict__ g, const floa
 // row stride a multiple of 16 bytes; ragged edges are zero-filled.
 // 8 warps as 2 (m) x 4 (n), a warp owns 32 x 16 of the 64 x 64 tile.
 // The epilogue (EPI) reads the fp32 tiles from shared memory.
-enum Epi { EPI_PARTIAL = 0, EPI_HIDDEN = 1, EPI_CHANNEL = 2 };
+enum Epi { EPI_PARTIAL = 0, EPI_HIDDEN = 1, EPI_CHANNEL = 2, EPI_CHANNEL_V1 = 3 };
 
 template <typename T, int NG>
 struct GemmArgs {
@@ -171,9 +197,12 @@ struct GemmArgs {
   const float* b1;
   float* db1_part;
   // EPI_CHANNEL (M = pixels, N = C): dz [M][N] fp32; y, g [M][N] dt; mean, rstd [M];
-  // b2 [N]; partials [gridDim.x][N] of dgamma, dln_scale, dln_bias
+  // b2 [N]; partials [gridDim.x][N] of dgamma, dln_scale, dln_bias.
+  // EPI_CHANNEL_V1: the same with yf [M][N] fp32 in place of y, and lns [N].
   float* dz;
   const T* y;
+  const float* yf;
+  const float* lns;
   const T* g;
   const float* mean;
   const float* rstd;
@@ -195,8 +224,9 @@ struct GemmLayout {
   template <int NG> __host__ __device__ static constexpr size_t stage_bytes() {
     return NG * (A_BYTES + B_BYTES);
   }
-  template <int NG> __host__ __device__ static constexpr size_t total() {
-    return max_sz(2 * stage_bytes<NG>(), NG * C_BYTES);
+  // NC fp32 epilogue tiles (the channel epilogues sum three columns)
+  template <int NG, int NC = NG> __host__ __device__ static constexpr size_t total() {
+    return max_sz(2 * stage_bytes<NG>(), NC * C_BYTES);
   }
 };
 
@@ -336,15 +366,26 @@ __global__ void __launch_bounds__(NT) cnb_bwd_gemm_kernel(const GemmArgs<T, NG> 
         }
         c1s[o] = dh;
       } else {
-        // c0 = d_z, c1 = d_z2, c2 = a @ w2 (o - b2)
+        // EPI_CHANNEL: c0 = d_z, c1 = d_z2, c2 = a @ w2 (o - b2);
+        // EPI_CHANNEL_V1: c0 = d_z2, c1 = a @ w2, and d_z = d_z2 * ln_scale
+        constexpr bool V1 = EPI == EPI_CHANNEL_V1;
         float dgam = 0.f, dlns = 0.f, dlnb = 0.f;
         if (in) {
           const size_t off = size_t(m) * g.N + n;
-          g.dz[off] = c0s[o];
-          const float z = (to_f(g.y[off]) - g.mean[m]) * g.rstd[m];
-          dgam = to_f(g.g[off]) * (c2s[o] + g.b2[n]);
-          dlns = c1s[o] * z;
-          dlnb = c1s[o];
+          const float dz2 = V1 ? c0s[o] : c1s[o];
+          const float ov = V1 ? c1s[o] : c2s[o];
+          float yv;
+          if constexpr (V1) {
+            g.dz[off] = dz2 * g.lns[n];
+            yv = g.yf[off];
+          } else {
+            g.dz[off] = c0s[o];
+            yv = to_f(g.y[off]);
+          }
+          const float z = (yv - g.mean[m]) * g.rstd[m];
+          dgam = to_f(g.g[off]) * (ov + g.b2[n]);
+          dlns = dz2 * z;
+          dlnb = dz2;
         }
         c0s[o] = dgam;
         c1s[o] = dlns;
@@ -368,9 +409,10 @@ __global__ void __launch_bounds__(NT) cnb_bwd_gemm_kernel(const GemmArgs<T, NG> 
 }
 
 // ---- row pass: d_y = r * (d_z - mean(d_z) - z * mean(d_z * z)), in place --
-template <typename T>
+// (y in the compute dtype for K2, the fp32 recompute for V1)
+template <typename TY>
 __global__ void __launch_bounds__(NT)
-cnb_bwd_dy_kernel(float* __restrict__ dz, const T* __restrict__ y, const float* __restrict__ mean,
+cnb_bwd_dy_kernel(float* __restrict__ dz, const TY* __restrict__ y, const float* __restrict__ mean,
                   const float* __restrict__ rstd, int P, int C) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int p = blockIdx.x * NWARP + warp;
@@ -532,7 +574,7 @@ cnb_bwd_reduce_kernel(const float* __restrict__ part, float* __restrict__ out, i
 // ---- workspace and launch sequence ---------------------------------------
 struct Plan {
   int P, C, nprep, nmt, S1, S2, k1, k2, nsl, nch;
-  size_t off[16];
+  size_t off[17];
   size_t total;
 };
 
@@ -547,7 +589,7 @@ inline void split_k(int P, int M, int N, int* S, int* kslice) {
 }
 
 template <typename T>
-Plan make_plan(int B, int H, int W, int C) {
+Plan make_plan(int B, int H, int W, int C, bool v1) {
   Plan pl{};
   pl.P = B * H * W;
   pl.C = C;
@@ -559,8 +601,8 @@ Plan make_plan(int B, int H, int W, int C) {
   const int ntiles = B * cdiv(H, TH) * cdiv(W, TW);
   pl.nsl = max(1, min(ntiles, cdiv(4 * 132, pl.nch)));
   const size_t P = pl.P, c = C, f = sizeof(float), t = sizeof(T);
-  const size_t sizes[16] = {
-      P * c * t,          // 0 z (dt)
+  const size_t sizes[17] = {
+      v1 ? 0 : P * c * t,  // 0 z (dt; K2 only)
       P * c * t,          // 1 z2 = z * lns + lnb (dt)
       P * c * t,          // 2 do = g * gamma (dt)
       P * 4 * c * t,      // 3 d_h (dt)
@@ -576,9 +618,10 @@ Plan make_plan(int B, int H, int W, int C) {
       size_t(pl.nsl) * 49 * c * f,  // 13 tap partials
       size_t(pl.nsl) * c * f,       // 14 dw-bias partials
       size_t(max(pl.S1, pl.S2)) * 4 * c * c * f,  // 15 weight-gradient partials (reused)
+      v1 ? P * c * f : 0,  // 16 y recomputed (fp32; V1 only)
   };
   size_t o = 0;
-  for (int i = 0; i < 16; ++i) {
+  for (int i = 0; i < 17; ++i) {
     pl.off[i] = o;
     o += align128(sizes[i]);
   }
@@ -593,7 +636,8 @@ inline int reduce(const float* part, float* out, int S, long long N, cudaStream_
 
 template <typename T, bool A_T, int NG, int EPI>
 int launch_gemm(const GemmArgs<T, NG>& ga, dim3 grid, cudaStream_t s) {
-  const size_t bytes = GemmLayout<T, A_T>::template total<NG>();
+  constexpr int NC = EPI == EPI_CHANNEL_V1 ? 3 : NG;
+  const size_t bytes = GemmLayout<T, A_T>::template total<NG, NC>();
   auto kern = cnb_bwd_gemm_kernel<T, A_T, NG, EPI>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
   if (e != cudaSuccess) return int(e);
@@ -604,11 +648,14 @@ int launch_gemm(const GemmArgs<T, NG>& ga, dim3 grid, cudaStream_t s) {
 // p: x, y, g, taps [49][C], w1f [C][4C], w2fT [C][4C], w1fT [4C][C],
 //    w1 [4C][C], w2t [4C][C], b1f [4C], b2 [C], gamma [C], lns [C], lnb [C],
 //    then the outputs dx, ddw [49][C], ddwb, dlns, dlnb, dw1 [4C][C], db1,
-//    dw2 [C][4C], db2, dgam
-template <typename T>
+//    dw2 [C][4C], db2, dgam.
+// V1 (K4) reads the same slots with y unused, dt(w1)^T [C][4C] in w1f's,
+// dt(w2) [C][4C] in w2fT's, w1fT's unused and the raw b1 in b1f's, and a
+// 25th pointer, the dw bias [C].
+template <typename T, bool V1>
 int backward(const void* const* p, void* ws, int B, int H, int W, int C, float eps,
              cudaStream_t s) {
-  const Plan pl = make_plan<T>(B, H, W, C);
+  const Plan pl = make_plan<T>(B, H, W, C, V1);
   const int P = pl.P;
   auto in = [&](int i) { return static_cast<const T*>(p[i]); };
   auto inf = [&](int i) { return static_cast<const float*>(p[i]); };
@@ -620,28 +667,45 @@ int backward(const void* const* p, void* ws, int B, int H, int W, int C, float e
   T* dx = static_cast<T*>(const_cast<void*>(p[14]));
   int rc;
 
-  cnb_bwd_prep_kernel<T><<<pl.nprep, NT, 0, s>>>(y, g, inf(12), inf(13), inf(11), wt(0), wt(1), wt(2),
-                                                 wf(5), wf(6), wf(8), P, C, eps);
+  if constexpr (V1) {  // y = dwconv7x7(x) + b_dw in fp32
+    if ((rc = dwc::dwconv7_launch<T>(x, inf(3), inf(24), wf(16), B, H, W, C, s))) return rc;
+    cnb_bwd_prep_kernel<T, float, true><<<pl.nprep, NT, 0, s>>>(
+        wf(16), g, inf(12), inf(13), inf(11), wt(0), wt(1), wt(2), wf(5), wf(6), wf(8), P, C, eps);
+  } else {
+    cnb_bwd_prep_kernel<T, T, false><<<pl.nprep, NT, 0, s>>>(
+        y, g, inf(12), inf(13), inf(11), wt(0), wt(1), wt(2), wf(5), wf(6), wf(8), P, C, eps);
+  }
   if ((rc = int(cudaGetLastError()))) return rc;
 
   GemmArgs<T, 2> hid{};  // h1 and d_a for (pixels x hidden) tiles
-  hid.a[0] = wt(0); hid.b[0] = in(4);
-  hid.a[1] = g;     hid.b[1] = in(5);
+  hid.a[0] = V1 ? wt(1) : wt(0); hid.b[0] = in(4);
+  hid.a[1] = V1 ? wt(2) : g;     hid.b[1] = in(5);
   hid.lda = C; hid.ldb = 4 * C; hid.M = P; hid.N = 4 * C; hid.K = C; hid.kslice = C;
   hid.dhd = wt(3); hid.act = wt(4); hid.b1 = inf(9); hid.db1_part = wf(9);
   if ((rc = launch_gemm<T, false, 2, EPI_HIDDEN>(hid, dim3(pl.nmt, cdiv(4 * C, BN), 1), s))) return rc;
 
-  GemmArgs<T, 3> chn{};  // d_z, d_z2 and o for (pixels x channel) tiles
-  chn.a[0] = wt(3); chn.b[0] = in(6);
-  chn.a[1] = wt(3); chn.b[1] = in(7);
-  chn.a[2] = wt(4); chn.b[2] = in(8);
-  chn.lda = 4 * C; chn.ldb = C; chn.M = P; chn.N = C; chn.K = 4 * C; chn.kslice = 4 * C;
-  chn.dz = wf(7); chn.y = y; chn.g = g; chn.mean = wf(5); chn.rstd = wf(6); chn.b2 = inf(10);
-  chn.dgam_part = wf(10); chn.dlns_part = wf(11); chn.dlnb_part = wf(12);
-  if ((rc = launch_gemm<T, false, 3, EPI_CHANNEL>(chn, dim3(pl.nmt, cdiv(C, BN), 1), s))) return rc;
-
-  cnb_bwd_dy_kernel<T><<<cdiv(P, NWARP), NT, 0, s>>>(wf(7), y, wf(5), wf(6), P, C);
-          if ((rc = int(cudaGetLastError()))) return rc;
+  if constexpr (V1) {
+    GemmArgs<T, 2> chn{};  // d_z2 and o for (pixels x channel) tiles; d_z = d_z2 * lns
+    chn.a[0] = wt(3); chn.b[0] = in(7);
+    chn.a[1] = wt(4); chn.b[1] = in(8);
+    chn.lda = 4 * C; chn.ldb = C; chn.M = P; chn.N = C; chn.K = 4 * C; chn.kslice = 4 * C;
+    chn.dz = wf(7); chn.yf = wf(16); chn.lns = inf(12); chn.g = g; chn.mean = wf(5);
+    chn.rstd = wf(6); chn.b2 = inf(10);
+    chn.dgam_part = wf(10); chn.dlns_part = wf(11); chn.dlnb_part = wf(12);
+    if ((rc = launch_gemm<T, false, 2, EPI_CHANNEL_V1>(chn, dim3(pl.nmt, cdiv(C, BN), 1), s))) return rc;
+    cnb_bwd_dy_kernel<float><<<cdiv(P, NWARP), NT, 0, s>>>(wf(7), wf(16), wf(5), wf(6), P, C);
+  } else {
+    GemmArgs<T, 3> chn{};  // d_z, d_z2 and o for (pixels x channel) tiles
+    chn.a[0] = wt(3); chn.b[0] = in(6);
+    chn.a[1] = wt(3); chn.b[1] = in(7);
+    chn.a[2] = wt(4); chn.b[2] = in(8);
+    chn.lda = 4 * C; chn.ldb = C; chn.M = P; chn.N = C; chn.K = 4 * C; chn.kslice = 4 * C;
+    chn.dz = wf(7); chn.y = y; chn.g = g; chn.mean = wf(5); chn.rstd = wf(6); chn.b2 = inf(10);
+    chn.dgam_part = wf(10); chn.dlns_part = wf(11); chn.dlnb_part = wf(12);
+    if ((rc = launch_gemm<T, false, 3, EPI_CHANNEL>(chn, dim3(pl.nmt, cdiv(C, BN), 1), s))) return rc;
+    cnb_bwd_dy_kernel<T><<<cdiv(P, NWARP), NT, 0, s>>>(wf(7), y, wf(5), wf(6), P, C);
+  }
+  if ((rc = int(cudaGetLastError()))) return rc;
 
   {
     auto kern = cnb_bwd_spatial_kernel<T>;
@@ -673,15 +737,23 @@ int backward(const void* const* p, void* ws, int B, int H, int W, int C, float e
   return reduce(wf(10), outf(23), pl.nmt, C, s);                        // gamma
 }
 
+inline bool bad_shape(int B, int H, int W, int C) {
+  return B <= 0 || H <= 0 || W <= 0 || C <= 0 || C % 16 != 0 || C > MAXC;
+}
+
+inline long long workspace(int B, int H, int W, int C, int is_bf16, bool v1) {
+  if (bad_shape(B, H, W, C)) return -1;
+  return (long long)(is_bf16 ? make_plan<__nv_bfloat16>(B, H, W, C, v1).total
+                             : make_plan<float>(B, H, W, C, v1).total);
+}
+
 }  // namespace
 
 extern "C" {
 
 // Bytes of device workspace cnb_backward needs for this shape.
 long long cnb_backward_workspace(int B, int H, int W, int C, int is_bf16) {
-  if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || C % 16 != 0 || C > MAXC) return -1;
-  return (long long)(is_bf16 ? make_plan<__nv_bfloat16>(B, H, W, C).total
-                             : make_plan<float>(B, H, W, C).total);
+  return workspace(B, H, W, C, is_bf16, false);
 }
 
 // ptrs: the 24 pointers listed above `backward` (inputs contiguous NHWC or
@@ -690,11 +762,26 @@ long long cnb_backward_workspace(int B, int H, int W, int C, int is_bf16) {
 // aligned. Launches on `stream`; returns the first CUDA error, or 0.
 int cnb_backward(const void* const* ptrs, void* ws, int B, int H, int W, int C, float eps,
                  int is_bf16, void* stream) {
-  if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || C % 16 != 0 || C > MAXC)
-    return int(cudaErrorInvalidValue);
+  if (bad_shape(B, H, W, C)) return int(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) return backward<__nv_bfloat16>(ptrs, ws, B, H, W, C, eps, s);
-  return backward<float>(ptrs, ws, B, H, W, C, eps, s);
+  if (is_bf16) return backward<__nv_bfloat16, false>(ptrs, ws, B, H, W, C, eps, s);
+  return backward<float, false>(ptrs, ws, B, H, W, C, eps, s);
+}
+
+// K4: bytes of device workspace cnb_backward_v1 needs for this shape.
+long long cnb_backward_v1_workspace(int B, int H, int W, int C, int is_bf16) {
+  return workspace(B, H, W, C, is_bf16, true);
+}
+
+// K4, the recompute-form backward: ptrs are the 25 pointers of the V1 form
+// listed above `backward` (taps and dw bias 16-byte aligned); otherwise as
+// cnb_backward.
+int cnb_backward_v1(const void* const* ptrs, void* ws, int B, int H, int W, int C, float eps,
+                    int is_bf16, void* stream) {
+  if (bad_shape(B, H, W, C)) return int(cudaErrorInvalidValue);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (is_bf16) return backward<__nv_bfloat16, true>(ptrs, ws, B, H, W, C, eps, s);
+  return backward<float, true>(ptrs, ws, B, H, W, C, eps, s);
 }
 
 }  // extern "C"

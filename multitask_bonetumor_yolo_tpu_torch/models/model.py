@@ -192,8 +192,13 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
     return model
 
 
-def build_model(cfg: ModelConfig, seed: int = 0, device: torch.device | str = "cpu") -> MultitaskModel:
-    """A seeded model on ``device`` in ``channels_last`` memory, in eval mode."""
+def build_model(cfg: ModelConfig, seed: int = 0, device: torch.device | str = "cuda") -> MultitaskModel:
+    """A seeded model on ``device`` (default the first card; without one it
+    raises unless the caller asks for ``"cpu"``) in ``channels_last`` memory,
+    in eval mode."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("build_model: no CUDA device; pass device='cpu' to build on the CPU")
     model = MultitaskModel(cfg)
     init_parameters(model, torch.Generator().manual_seed(seed))
     return model.to(device=device, memory_format=torch.channels_last).eval()

@@ -12,10 +12,14 @@ with LN scale/bias folded into fc1 and layer-scale gamma into fc2
   * :func:`convnext_block` — the wrapper: on a CUDA tensor it launches the
     kernel or raises; on a CPU tensor it returns the plain twin. When
     autograd records the block (grad enabled and an input requires grad) it
-    runs the residual-saving form instead, under an autograd Function whose
-    backward is kernel K2 (``convnext_block_bwd.py``) for ``bwd="fused"``
-    or the vjp of the eager reference for ``bwd="ref"``, as the JAX
-    ``_bwd_padded`` does.
+    runs an autograd Function whose backward is picked by ``bwd``, as the
+    JAX ``_bwd_padded`` picks it: ``"fused"``, the residual-saving form with
+    kernel K2 (``convnext_block_bwd.py``) as its backward; ``"ref"``, the
+    inference form with the vjp of the eager reference; ``"fused_v1"``, the
+    inference form with kernel K4, the recompute-form backward (JAX
+    ``CNB_FUSED_BWD=1``); ``"explicit"``, the inference form with the
+    explicit backward, whose two depthwise convolutions are kernel K3 (JAX
+    ``CNB_EXPLICIT_BWD=1``). The port reads no environment variable.
   * :func:`convnext_block_saving` — the residual-saving form (JAX
     ``save_res=True``): ``(out, y)`` with ``y = dwconv7x7(x) + b_dw`` in the
     compute dtype, the input of the backward.
@@ -166,7 +170,7 @@ def check_block_args(x, params):
             raise ValueError(f"convnext_block: {name} on {p.device}, x on {x.device}")
 
 
-def _dt_copy(t, dt):
+def dt_copy(t, dt):
     """A contiguous ``dt`` copy of ``t`` (a cast and a transpose in one launch)."""
     return torch.empty(t.shape, dtype=dt, device=t.device).copy_(t)
 
@@ -182,8 +186,8 @@ def kernel_operands(params, dt, backward: bool = False) -> dict:
     ops = dict(taps=dw, dw_bias=dwb, w1f=w1f.to(dt), b1f=b1f, w2f=w2f.to(dt), b2f=b2f)
     if backward:
         w1, w2 = params[4], params[6]
-        ops.update(w2f_t=_dt_copy(ops["w2f"].t(), dt), w1f_t=_dt_copy(ops["w1f"].t(), dt),
-                   w1=w1.to(dt).contiguous(), w2_t=_dt_copy(w2.t(), dt))
+        ops.update(w2f_t=dt_copy(ops["w2f"].t(), dt), w1f_t=dt_copy(ops["w1f"].t(), dt),
+                   w1=w1.to(dt).contiguous(), w2_t=dt_copy(w2.t(), dt))
     return ops
 
 
@@ -228,10 +232,15 @@ def convnext_block_saving(
 convnext_block_saving.launches = 0
 
 
+BWD_ROUTES = ("fused", "ref", "fused_v1", "explicit")
+
+
 class _Block(torch.autograd.Function):
-    """The block under autograd: forward K1 (saving form for ``"fused"``),
-    backward K2 (``"fused"``) or the vjp of the eager reference (``"ref"``).
-    Inputs and outputs NHWC; the cotangent is made contiguous."""
+    """The block under autograd: forward K1 (the saving form for
+    ``"fused"``, else the inference form, saving x), backward K2
+    (``"fused"``), the vjp of the eager reference (``"ref"``), K4
+    (``"fused_v1"``) or the explicit backward (``"explicit"``). Inputs and
+    outputs NHWC; the cotangent is made contiguous."""
 
     @staticmethod
     def forward(ctx, x, eps, bwd, *params):
@@ -249,12 +258,17 @@ class _Block(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         g = g.contiguous()
-        if ctx.bwd == "fused":
-            from .convnext_block_bwd import convnext_block_bwd  # imports this module
+        from . import convnext_block_bwd as bwds  # imports this module
 
+        if ctx.bwd == "fused":
             x, y, *params = ctx.saved_tensors
-            dx, *dparams = convnext_block_bwd(x, y, g, *params, eps=ctx.eps, ops=ctx.ops)
+            dx, *dparams = bwds.convnext_block_bwd(x, y, g, *params, eps=ctx.eps, ops=ctx.ops)
             ctx.ops = None
+        elif ctx.bwd in ("fused_v1", "explicit"):
+            x, *params = ctx.saved_tensors
+            fn = (bwds.convnext_block_bwd_v1 if ctx.bwd == "fused_v1"
+                  else bwds.convnext_block_bwd_explicit)
+            dx, *dparams = fn(x, g, *params, eps=ctx.eps)
         else:
             x, *params = ctx.saved_tensors
             with torch.enable_grad():
@@ -279,10 +293,11 @@ def convnext_block(
 ):
     """Fused ConvNeXt block on NHWC ``x``. CUDA tensor: the hand-written
     kernel (raises on anything it does not take). CPU tensor: the plain twin.
-    Recorded by autograd, the residual-saving form with the backward ``bwd``
-    ("fused": K2; "ref": the vjp of the eager reference)."""
+    Recorded by autograd, with the backward ``bwd`` ("fused": K1's saving
+    form and K2; "ref": the vjp of the eager reference; "fused_v1": K4;
+    "explicit": the explicit backward through K3)."""
     params = (dw_kernel, dw_bias, ln_scale, ln_bias, w1, b1, w2, b2, gamma)
-    if bwd not in ("fused", "ref"):
+    if bwd not in BWD_ROUTES:
         raise ValueError(f"unknown block backward {bwd!r}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, *params)):
         return _Block.apply(x, eps, bwd, *params)

@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (K1 in both forms, K2) and its device-side NMS on
-the card.
+"""The port's CUDA kernels (K1 in both forms, K2, K3, K4) and its
+device-side NMS on the card.
 
 Every test here carries the ``cuda`` marker and skips without a card. The
 file imports no JAX, because the GPU machine has none; run it there without
@@ -15,6 +15,7 @@ import torch
 from multitask_bonetumor_yolo_tpu_torch.ops import nms
 from multitask_bonetumor_yolo_tpu_torch.ops.kernels import convnext_block as cnb
 from multitask_bonetumor_yolo_tpu_torch.ops.kernels import convnext_block_bwd as k2
+from multitask_bonetumor_yolo_tpu_torch.ops.kernels import dwconv as k3
 
 pytestmark = pytest.mark.cuda
 
@@ -158,6 +159,100 @@ def test_bwd_kernel_raises_on_what_it_does_not_take(dev):
         k2.convnext_block_bwd(*[t[..., :24] for t in (x, y, g)],
                               *block_args(0, 1, 8, 8, 24, torch.bfloat16, dev)[1:])
     assert k2.convnext_block_bwd.launches == before
+
+
+@pytest.mark.parametrize("shape,dtype,tol", [
+    ((1, 13, 21, 48), torch.bfloat16, 1e-4),
+    ((2, 160, 160, 96), torch.bfloat16, 1e-4),
+    ((3, 7, 5, 784), torch.float32, 1e-4),  # wider than the block kernels take
+])
+def test_dwconv_kernel_matches_plain(dev, shape, dtype, tol):
+    """K3 against ``F.conv2d(groups=C)`` on the fp32 input (TF32 off), and
+    with the flipped taps of the explicit backward: fp32 sums of exact
+    products in both, in other orders (1e-4)."""
+    rs = np.random.RandomState(14)
+    x = torch.from_numpy(rs.randn(*shape).astype(np.float32)).to(dev, dtype)
+    taps = torch.from_numpy(rs.randn(7, 7, shape[-1]).astype(np.float32) * 0.1).to(dev)
+    for t in (taps, taps.flip(0, 1)):
+        before = k3.dwconv7.launches
+        got = k3.dwconv7(x, t)
+        want = k3.dwconv7_plain(x, t)
+        torch.cuda.synchronize()
+        assert k3.dwconv7.launches == before + 1 and got.dtype == torch.float32
+        torch.testing.assert_close(got, want, atol=tol, rtol=tol)
+
+
+def test_dwconv_kernel_raises_on_what_it_does_not_take(dev):
+    x = torch.zeros(1, 8, 8, 32, device=dev, dtype=torch.bfloat16)
+    taps = torch.zeros(7, 7, 32, device=dev)
+    before = k3.dwconv7.launches
+    with pytest.raises(ValueError):  # C not a multiple of 16
+        k3.dwconv7(x[..., :24].contiguous(), taps[..., :24])
+    with pytest.raises(TypeError):
+        k3.dwconv7(x.half(), taps)
+    with pytest.raises(ValueError):  # not contiguous NHWC
+        k3.dwconv7(x.transpose(1, 2), taps)
+    with pytest.raises(ValueError):  # taps of another width
+        k3.dwconv7(x, taps[..., :16])
+    assert k3.dwconv7.launches == before
+
+
+@pytest.mark.parametrize("shape,dtype,tol", [
+    ((1, 13, 21, 96), torch.bfloat16, 3e-2),
+    ((3, 7, 5, 48), torch.bfloat16, 3e-2),
+    ((2, 20, 20, 768), torch.bfloat16, 3e-2),
+    ((1, 13, 21, 96), torch.float32, 1e-2),
+])
+def test_bwd_v1_kernel_matches_plain(dev, shape, dtype, tol):
+    """K4 against its plain version on the same x and cotangent, with K2's
+    tolerances (bf16: one rounding step can flip; fp32: TF32 products)."""
+    x, *params = block_args(15, *shape, dtype, dev)
+    g = torch.randn(shape, generator=torch.Generator(dev).manual_seed(16), device=dev).to(dtype)
+    before = k2.convnext_block_bwd_v1.launches
+    got = k2.convnext_block_bwd_v1(x, g, *params)
+    want = k2.convnext_block_bwd_v1_plain(x, g, *params)
+    torch.cuda.synchronize()
+    assert k2.convnext_block_bwd_v1.launches == before + 1
+    check_bwd(got, want, tol)
+    again = k2.convnext_block_bwd_v1(x, g, *params)
+    for a, b in zip(got, again):  # fixed-order reductions: bit for bit
+        assert torch.equal(a, b)
+
+
+def test_bwd_v1_kernel_raises_on_what_it_does_not_take(dev):
+    x, *params = block_args(0, 1, 8, 8, 32, torch.bfloat16, dev)
+    g = torch.zeros_like(x)
+    before = k2.convnext_block_bwd_v1.launches
+    with pytest.raises(ValueError):  # g of another dtype
+        k2.convnext_block_bwd_v1(x, g.float(), *params)
+    with pytest.raises(ValueError):  # g not contiguous NHWC
+        k2.convnext_block_bwd_v1(x, g.transpose(1, 2), *params)
+    with pytest.raises(ValueError):  # C above 768
+        wide, *wide_params = block_args(0, 1, 8, 8, 784, torch.bfloat16, dev)
+        k2.convnext_block_bwd_v1(wide, torch.zeros_like(wide), *wide_params)
+    assert k2.convnext_block_bwd_v1.launches == before
+
+
+@pytest.mark.parametrize("route", ["fused_v1", "explicit"])
+def test_autograd_routes_run_their_kernels(dev, route):
+    """Recorded by autograd, ``bwd="fused_v1"`` runs K1 (inference form) and
+    K4 once each; ``"explicit"`` runs K1 once and K3 twice; the gradients are
+    those of the route's backward function on the same cotangent."""
+    x, *params = block_args(17, 2, 16, 16, 96, torch.bfloat16, dev)
+    leaves = [t.requires_grad_() for t in (x, *params)]
+    fns = (cnb.convnext_block, cnb.convnext_block_saving, k2.convnext_block_bwd,
+           k2.convnext_block_bwd_v1, k3.dwconv7)
+    counts = [f.launches for f in fns]
+    out = cnb.convnext_block(*leaves, bwd=route)
+    g = torch.randn_like(out)
+    out.backward(g)
+    torch.cuda.synchronize()
+    want = [1, 0, 0, 1, 0] if route == "fused_v1" else [1, 0, 0, 0, 2]
+    assert [f.launches - c for f, c in zip(fns, counts)] == want
+    fn = k2.convnext_block_bwd_v1 if route == "fused_v1" else k2.convnext_block_bwd_explicit
+    plain = [t.detach() for t in leaves]
+    for t, w in zip(leaves, fn(plain[0], g, *plain[1:])):
+        torch.testing.assert_close(t.grad, w, atol=0, rtol=0)
 
 
 def test_nms_on_card_matches_cpu(dev):

@@ -75,7 +75,7 @@ def jax_variables(cfg, seed=0):
         np.arange(a, b, dtype=np.float32).reshape(leaf.shape)
         for a, b, leaf in zip(starts, ends, leaves)])
     index = flax_to_torch(coded["params"], coded["batch_stats"])
-    sd = build_model(ModelConfig(**cfg), seed=seed).state_dict()
+    sd = build_model(ModelConfig(**cfg), seed=seed, device="cpu").state_dict()
     rs = np.random.RandomState(seed)
     flat = np.full(ends[-1], np.nan, np.float32)
     for key, idx in index.items():

@@ -1,7 +1,7 @@
 """The port's train state and preprocessing, on the CPU: the non-finite
 skip of ``TrainState.apply_gradients``, two of its steps and the
-learning-rate schedule against optax's (through the JAX package), and the
-not-yet-ported augmentation.
+learning-rate schedule against optax's (through the JAX package), the
+not-yet-ported augmentation, and the device ``build_model`` defaults to.
 
 At the oracle config of tests/test_torch_train.py, with the port's own
 seeded weights: none of these needs the JAX model. They live apart from
@@ -35,7 +35,7 @@ def test_nonfinite_gradient_skips_the_step():
     forward, the moments and the optimizer count as they were and only
     ``step`` advances; a finite step after it applies; a huge but finite
     gradient (whose sum of squares overflows) is clipped, not skipped."""
-    model = build_model(ModelConfig(**CFG), seed=0)
+    model = build_model(ModelConfig(**CFG), seed=0, device="cpu")
     state = create_train_state(model.cfg, TrainConfig(**TRAIN), model=model)
     before = {k: v.clone() for k, v in model.state_dict().items()}
     snap = state.bn_snapshot()
@@ -76,7 +76,7 @@ def test_apply_gradients_matches_optax():
     without the clip the second gradient enters the moments 4x too large;
     the schedule read at the wrong count moves the second change by 2.4 %."""
     cfg = dict(TRAIN, lr=1e-2, weight_decay=0.05, grad_clip=2.0)
-    model = build_model(ModelConfig(**CFG), seed=0)
+    model = build_model(ModelConfig(**CFG), seed=0, device="cpu")
     state = create_train_state(model.cfg, TrainConfig(**cfg), model=model)
     names, params = zip(*model.named_parameters())
     sizes = np.cumsum([0] + [p.numel() for p in params])
@@ -132,3 +132,15 @@ def test_augmentation_is_not_ported_yet():
     assert out["image"].dtype == torch.float32 and float(out["image"].max()) <= 1.0
     assert dataclasses.asdict(AugmentConfig()) == {
         "hsv_h": 0.0, "hsv_s": 0.0, "hsv_v": 0.0, "hflip_prob": 0.0, "mosaic_prob": 0.0}
+
+
+def test_build_model_defaults_to_the_card():
+    """``build_model`` builds on the first card unless the caller asks for
+    the CPU; without a card it raises instead of falling back."""
+    cfg = ModelConfig(**CFG)
+    if torch.cuda.is_available():
+        assert next(build_model(cfg).parameters()).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build_model(cfg)
+    assert next(build_model(cfg, device="cpu").parameters()).device.type == "cpu"
