@@ -7,7 +7,8 @@ is printed):
   1. record the card (``nvidia-smi`` name and power limit);
   2. build the kernels from ``csrc/``, one nvcc per source, all at once: the
      ConvNeXt-block forward (K1), the block backwards (K2 and K4, one
-     source) and the standalone depthwise 7x7 (K3); time the builds;
+     source), the standalone depthwise 7x7 (K3) and the kernel lab (K5);
+     time the builds;
   3. K1 against its plain twin at the four 640^2 stage shapes (batch 2),
      an odd non-square shape and a narrow (C=48) one, in bf16 (atol/rtol 3e-2) and fp32 (atol/rtol
      1e-2: the kernel's products run in TF32, the twin in full fp32); then
@@ -72,6 +73,17 @@ is printed):
      the depths 3/3/9/3; then the gradients of "fused_v1" and "explicit" at
      batch 2 in fp32 against fp32 eager autograd (dx atol/rtol 5e-3,
      parameter gradients 2e-2 of their scale: the tanh/erf GELU gap).
+ 13. "[lab]", the kernel lab (K5, K1 cut down phase by phase): each of its 14
+     variants against its plain version at both of its tiles (K1's and TM =
+     32), at the batch-16 stage shapes and at (2, 13, 21, 48) (copy
+     bit-exact; the dw family, dwbf16, dwln and mlpgelubf16 within one bf16
+     step, rtol 2^-7 atol 1e-3; the other products' phases atol/rtol 3e-2),
+     ``full`` bit for bit against K1's ``convnext_block``; each variant timed
+     (``utils/timing.py::timeloop``) with and without ``padded_io`` beside
+     its bound, its plain version and ``x.clone()`` / cuDNN's depthwise
+     convolution where one call computes it ("[lab-time]"); K1's time split
+     by phase per stage ("[lab-split]"); then the entry point
+     ``tools.kernel_lab.main(["--stage", "0"])``, the lab's main path.
 Each phase sets the launch counts to 0 right before the path it drives and
 reads them right after; the K3 and K4 launches of the kernels line are
 those of phase 12's pass over the trunk. Prints the kernels' JSON line, the card's line, and
@@ -723,6 +735,161 @@ def phase_block_fwdbwd(cnb, k2, k3, dev, gen):
     return launches, table, totals, grad_err
 
 
+# the H100 SXM's bf16 rate outside the tensor cores (2x fp32, whitepaper):
+# dwbf16's taps are bf16 operations, though the kernel runs them as fp32
+# operations rounded to bf16 one by one
+PEAK_BF16_SIMT = 134e12
+
+
+def lab_bound(name, b, h, w, c):
+    """(bound_ms, bound_by) of one lab launch: the largest of the bytes (x in,
+    out out: 4 B H W C) over the memory rate, the 49 taps (98 C flop per
+    pixel) over the fp32 peak (``dwbf16``: the bf16 rate outside the tensor
+    cores) and the two products (16 C^2 flop per pixel) over the bf16 tensor
+    peak, as far as the variant has them."""
+    p = b * h * w
+    taps = 98 * c * p if name.startswith("dw") or name == "full" else 0
+    prods = 16 * c * c * p if name.startswith("mlp") or name == "full" else 0
+    parts = {"bytes": 4 * p * c / PEAK_BYTES * 1e3,
+             "taps": taps / (PEAK_BF16_SIMT if name == "dwbf16" else PEAK_FP32) * 1e3,
+             "products": prods / PEAK_BF16 * 1e3}
+    by = max(parts, key=parts.get)
+    return parts[by], "bytes" if by == "bytes" else "operations"
+
+
+LAB_SPLIT = ("copy", "dwrowreg", "dwln", "mlp", "mlpgelu", "full")
+
+
+def lab_split(t):
+    """K1's time by phase from the lab's launch-alone times ``t``: the load
+    and store (copy), the 49 taps (K1's schedule less copy), LN (dwln less
+    dw), the two products (mlp less copy), GELU (mlpgelu less mlp), and what
+    the phases do not add up to (full less dwln less mlpgelu plus copy)."""
+    return {"load_store": t["copy"], "taps": t["dwrowreg"] - t["copy"],
+            "ln": t["dwln"] - t["dwrowreg"], "products": t["mlp"] - t["copy"],
+            "gelu": t["mlpgelu"] - t["mlp"],
+            "rest": t["full"] - t["dwln"] - t["mlpgelu"] + t["copy"], "full": t["full"]}
+
+
+def phase_lab(cnb, dev):
+    """The kernel lab (K5): every variant against its plain version at both of
+    its tiles, at the batch-16 stage shapes and at C = 48; ``full`` bit for
+    bit against K1 through ``convnext_block``; then each variant at K1's
+    tile timed (``timeloop``) with and without ``padded_io``, beside its
+    bound, its plain version and the library call, where there is one; K1's
+    split by phase per stage (also at TM = 32 where K1's tile is larger);
+    last the entry point itself, ``tools.kernel_lab.main`` at ``--stage 0``,
+    with the launch count set to 0 before it and read after."""
+    from multitask_bonetumor_yolo_tpu_torch.ops.kernels import kernel_lab as lab
+    from multitask_bonetumor_yolo_tpu_torch.tools import kernel_lab as tools
+    from multitask_bonetumor_yolo_tpu_torch.utils.timing import timeloop
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    shapes = [(BATCH, s, s, c) for c, s, _ in STAGES] + [(2, 13, 21, 48)]
+    max_err = 0.0
+    for shape in shapes:
+        c = shape[-1]
+        if lab.k1_tile(c)[0] != lab.k1_tile_pixels(c):
+            raise RuntimeError(f"[lab] C={c}: K1's tile {lab.k1_tile(c)} but the CPU route's "
+                               f"rule says TM={lab.k1_tile_pixels(c)}")
+        x, dw, w1, w2 = tools.lab_inputs(*shape, device=dev)
+        taps, w1k, w2k, zeros = tools.fold(dw, w1, w2, c)
+        errs = []
+        for name in lab.VARIANTS:
+            want = lab.lab_variant_plain(name, x, taps, w1k, w2k)
+            rtol, atol = lab.card_tolerance(name)
+            for tm in lab.legal_tiles(c):
+                got = lab.lab_variant(name, x, taps, w1k, w2k, tm=tm, zeros=zeros)
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs()
+                if not torch.isfinite(got.float()).all() or bool(
+                        (err > atol + rtol * want.float().abs()).any()):
+                    raise RuntimeError(f"[lab] {name} {shape} TM={tm}: max abs err "
+                                       f"{err.max().item():.3e} (rtol {rtol}, atol {atol})")
+                errs.append((name, tm, err.max().item()))
+                max_err = max(max_err, err.max().item())
+        # full is K1: the model's kernel, the same launch, bit for bit
+        ones = torch.ones(c, device=dev)
+        k1_out = cnb.convnext_block(
+            x, taps.permute(2, 0, 1).reshape(c, 1, 7, 7), zeros[:c], ones, zeros[:c],
+            w1k.t().float(), zeros, w2k.t().float(), zeros[:c], ones)
+        if not torch.equal(lab.lab_variant("full", x, taps, w1k, w2k, zeros=zeros), k1_out):
+            raise RuntimeError(f"[lab] {shape}: full differs from K1's convnext_block")
+        log(f"[lab] {shape} bf16, kernel vs plain max abs err per variant and tile: "
+            + ", ".join(f"{n}@{tm} {e:.2e}" for n, tm, e in errs) + "; full == K1 bit for bit")
+
+    iters = 10
+    table = {name: [] for name in lab.VARIANTS}
+    split = []
+    for c, s, _ in STAGES:
+        shape = (BATCH, s, s, c)
+        x, dw, w1, w2 = tools.lab_inputs(*shape, device=dev)
+        taps, w1k, w2k, _ = tools.fold(dw, w1, w2, c)
+        xc = x.permute(0, 3, 1, 2)  # NCHW view of the NHWC bytes (channels_last)
+        wb = taps.permute(2, 0, 1).reshape(c, 1, 7, 7).to(torch.bfloat16)
+        lib = {"copy": cuda_ms(lambda: x.clone()),
+               "dw": cuda_ms(lambda: F.conv2d(xc, wb, padding=3, groups=c))}
+        padded = {}
+        for name in lab.VARIANTS:
+            run, xin = tools.build_variant(name, *shape, 0, torch.bfloat16, device=dev)
+            run_p, _ = tools.build_variant(name, *shape, 0, torch.bfloat16, padded_io=True,
+                                           device=dev)
+            t_pad = timeloop(lambda: run_p(xin), iters)
+            t_run = timeloop(lambda: run(xin), iters)
+            t_plain = cuda_ms(lambda: lab.lab_variant_plain(name, xin, taps, w1k, w2k),
+                              iters=3, warmup=1)
+            b_ms, b_by = lab_bound(name, *shape)
+            t_lib = (lib["copy"] if name == "copy" else
+                     lib["dw"] if name.startswith("dw") and name != "dwln" else None)
+            ctas = lab.lab_tile(name, c)[3]
+            padded[name] = t_pad
+            table[name].append({"shape": list(shape), "ms": t_run, "ms_padded_io": t_pad,
+                                "plain_ms": t_plain, "bound_ms": b_ms, "bound_by": b_by,
+                                "library_ms": t_lib, "ctas_per_sm": ctas})
+            log(f"[lab-time] {shape} {name:<11s} {t_run:.4f} ms, launch alone {t_pad:.4f} ms "
+                f"({ctas} CTAs/SM{'; = ' + lab.SHARES[name] if name in lab.SHARES else ''}); "
+                f"bound {b_ms:.4f} ({b_by}), plain {t_plain:.4f}"
+                + (f", library {t_lib:.4f}" if t_lib is not None else ""))
+        tm, th, tw, _ = lab.lab_tile("full", c)
+        row = {"shape": list(shape), "tile": [tm, th, tw], **lab_split(padded)}
+        if tm != lab.SECOND_TILE:  # the same split at the second tile
+            t32 = {}
+            for name in LAB_SPLIT:
+                run_p, xin = tools.build_variant(name, *shape, lab.SECOND_TILE, torch.bfloat16,
+                                                 padded_io=True, device=dev)
+                t32[name] = timeloop(lambda: run_p(xin), iters)
+            row["tm32"] = lab_split(t32)
+        split.append(row)
+        log(f"[lab-split] {shape} K1 (TM={tm}, {th}x{tw}) by phase, launch alone, ms: "
+            + json.dumps({k: v for k, v in row.items() if k not in ("shape", "tile")}))
+        log(f"[lab-library] {shape} x.clone() {lib['copy']:.4f} ms; cuDNN depthwise "
+            f"F.conv2d(groups=C) on the bf16 input, bf16 taps {lib['dw']:.4f} ms")
+
+    # the main path: the lab's entry point on the card, as a user runs it
+    lab.lab_variant.launches = 0
+    times = tools.main(["--stage", "0"])
+    torch.cuda.synchronize()
+    launches = lab.lab_variant.launches
+    reps, n = 3, 20  # timeloop's defaults and main's --iters
+    want = len(times) * (1 + reps) * 4 * n
+    if launches != want:
+        raise RuntimeError(f"[lab] the entry point launched {launches} lab kernels, want {want}")
+    log(f"[lab] tools.kernel_lab.main(--stage 0): {launches} launches of the lab's kernels; "
+        f"the phase took {time.perf_counter() - t_phase:.1f} s after the build")
+    main_rows = {name: table[name][0] for name in times}
+    by_ms = {"bytes": 0.0, "operations": 0.0}
+    for r in main_rows.values():
+        by_ms[r["bound_by"]] += r["bound_ms"]
+    # the main path's numbers: the entry point's six variants at stage 0
+    return {"launches": launches, "max_abs_err": max_err, "ms": sum(times.values()),
+            "plain_ms": sum(r["plain_ms"] for r in main_rows.values()),
+            "bound_ms": sum(by_ms.values()), "bound_by": max(by_ms, key=by_ms.get),
+            "main_path": {"argv": "--stage 0", "ms": times},
+            "per_variant": table, "split": split}
+
+
 # Device kernels by category, first match wins, against the lower-cased
 # demangled name. The port's kernels carry their own prefixes (K1
 # ``cnb_forward_kernel``, K2 and K4 ``cnb_bwd_*_kernel``, K3
@@ -948,14 +1115,21 @@ def main() -> int:
     card = card_line()
     log(f"[card] {card}; torch {torch.__version__} cuda {torch.version.cuda}")
     dev = torch.device("cuda", 0)
-    names = ("convnext_block", "convnext_block_bwd", "dwconv")
+    names = ("convnext_block", "convnext_block_bwd", "dwconv", "kernel_lab")
     with ThreadPoolExecutor(len(names)) as ex:
         builds = dict(zip(names, ex.map(timed_build, names)))
     for name, (path, report, secs) in builds.items():
         log(f"[build] {path.name} in {secs:.2f} s (the builds ran in parallel)")
-        for line in report.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {line.strip()}")
+        lines = [ln.strip() for ln in report.splitlines() if "registers" in ln or "spill" in ln]
+        if name == "kernel_lab":  # ~90 instantiations: a summary
+            regs = [int(ln.split("Used ")[1].split()[0]) for ln in lines if "Used " in ln]
+            spills = [ln for ln in lines if "spill" in ln and not ln.startswith("0 bytes spill")
+                      and " 0 bytes spill stores, 0 bytes spill loads" not in ln]
+            log(f"[build] kernel_lab: {len(regs)} kernels, registers {min(regs, default=0)}"
+                f"-{max(regs, default=0)}; with spills: {spills or 'none'}")
+            continue
+        for line in lines:
+            log(f"[build] {line}")
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     max_err, per_stage, k_ms, p_ms = phase_kernel(cnb, dev, gen)
@@ -965,6 +1139,7 @@ def main() -> int:
     err_k3, k3_stages = phase_dwconv(k3, dev, gen)
     err_k4_dx, err_k4_scale, k4_stages = phase_bwd_v1(cnb, k2, dev, gen)
     fb_launches, fb_table, fb_totals, fb_grad_err = phase_block_fwdbwd(cnb, k2, k3, dev, gen)
+    lab_entry = phase_lab(cnb, dev)
 
     infer_bound = depth_sum([k1_bound(BATCH, s, s, c) for c, s, _ in STAGES], STAGES)
     common = {"route": "cuda", "library_ms": None}
@@ -999,6 +1174,9 @@ def main() -> int:
          "grad_err_of_scale": err_k4_scale,
          **path_totals(k4_stages, 1, ("ms", "plain_ms", "eager_bwd_ms")),
          "per_stage": k4_stages},
+        {"name": "kernel_lab", **common,
+         "source": "multitask_bonetumor_yolo_tpu_torch/csrc/kernel_lab.cu",
+         "replaces": "scripts/kernel_lab.py:37", **lab_entry},
     ]}))
     log("[block-fwdbwd] " + json.dumps({"per_stage": fb_table, "trunk_ms": fb_totals,
                                          "launches (K1, K1 saving, K2, K4, K3)": fb_launches,

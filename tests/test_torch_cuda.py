@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (K1 in both forms, K2, K3, K4) and its
-device-side NMS on the card.
+"""The port's CUDA kernels (K1 in both forms, K2, K3, K4, the kernel lab K5)
+and its device-side NMS on the card.
 
 Every test here carries the ``cuda`` marker and skips without a card. The
 file imports no JAX, because the GPU machine has none; run it there without
@@ -16,6 +16,8 @@ from multitask_bonetumor_yolo_tpu_torch.ops import nms
 from multitask_bonetumor_yolo_tpu_torch.ops.kernels import convnext_block as cnb
 from multitask_bonetumor_yolo_tpu_torch.ops.kernels import convnext_block_bwd as k2
 from multitask_bonetumor_yolo_tpu_torch.ops.kernels import dwconv as k3
+from multitask_bonetumor_yolo_tpu_torch.ops.kernels import kernel_lab as k5
+from multitask_bonetumor_yolo_tpu_torch.tools import kernel_lab as lab_tools
 
 pytestmark = pytest.mark.cuda
 
@@ -271,3 +273,57 @@ def test_nms_on_card_matches_cpu(dev):
     for name in ("valid", "indices", "labels"):
         assert torch.equal(getattr(got, name).cpu(), getattr(want, name)), name
     torch.testing.assert_close(got.boxes.cpu(), want.boxes, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("c", [48, 96])
+def test_lab_variants_match_plain(dev, c):
+    """Every variant of the kernel lab (K5) at both of its tiles against its
+    plain version, at an odd shape (partial tiles; at C = 48 a partial
+    channel chunk and a partial hidden chunk), one launch each, at the
+    tolerances of ``card_tolerance``."""
+    x, dw, w1, w2 = lab_tools.lab_inputs(2, 13, 21, c, device=dev)
+    taps, w1k, w2k, zeros = lab_tools.fold(dw, w1, w2, c)
+    for name in k5.VARIANTS:
+        want = k5.lab_variant_plain(name, x, taps, w1k, w2k)
+        rtol, atol = k5.card_tolerance(name)
+        for tm in k5.legal_tiles(c):
+            before = k5.lab_variant.launches
+            got = k5.lab_variant(name, x, taps, w1k, w2k, tm=tm, zeros=zeros)
+            torch.cuda.synchronize()
+            assert k5.lab_variant.launches == before + 1
+            torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol,
+                                       msg=lambda m: f"{name} TM={tm}: {m}")
+
+
+@pytest.mark.parametrize("c", [48, 96, 384])
+def test_lab_full_is_k1(dev, c):
+    """The lab's ``full`` is K1: equal bit for bit to ``convnext_block`` with
+    zero biases, unit LN and unit gamma on the same operands; its tile is
+    K1's, and the CPU route's rule for K1's tile agrees with the library."""
+    x, dw, w1, w2 = lab_tools.lab_inputs(2, 13, 21, c, device=dev)
+    taps, w1k, w2k, zeros = lab_tools.fold(dw, w1, w2, c)
+    ones = torch.ones(c, device=dev)
+    want = cnb.convnext_block(x, taps.permute(2, 0, 1).reshape(c, 1, 7, 7), zeros[:c], ones,
+                              zeros[:c], w1k.t().float(), zeros, w2k.t().float(), zeros[:c],
+                              ones)
+    assert torch.equal(k5.lab_variant("full", x, taps, w1k, w2k), want)
+    assert k5.lab_tile("full", c) == k5.k1_tile(c)
+    assert k5.k1_tile(c)[0] == k5.k1_tile_pixels(c)
+    assert k5.lab_tile("mlpgelu", c)[:3] == k5.k1_tile(c)[:3]
+
+
+def test_lab_raises_on_what_it_does_not_take(dev):
+    x, dw, w1, w2 = lab_tools.lab_inputs(1, 8, 8, 96, device=dev)
+    ops = lab_tools.fold(dw, w1, w2, 96)[:3]
+    before = k5.lab_variant.launches
+    with pytest.raises(TypeError):
+        k5.lab_variant("dw", x.float(), *ops)
+    with pytest.raises(ValueError, match="unknown variant"):
+        k5.lab_variant("dwfast", x, *ops)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        k5.lab_variant("dw", torch.zeros(1, 8, 8, 24, dtype=torch.bfloat16, device=dev), *ops)
+    with pytest.raises(ValueError, match=r"legal: \(32, 128\)"):
+        k5.lab_variant("dw", x, *ops, tm=64)
+    with pytest.raises(ValueError):  # w1 not in the kernel's layout
+        k5.lab_variant("mlp", x, ops[0], ops[1].t(), ops[2])
+    assert k5.lab_variant.launches == before
