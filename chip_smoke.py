@@ -1,6 +1,8 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (an H100 is the target).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                    # every phase: the full check
+    python3 chip_smoke.py --only k2,k2-split # some phases, in order, for bring-up:
+                                             # no kernels line and no result line
 
 Phases (any failure raises, so the exit code is non-zero and no result line
 is printed):
@@ -8,7 +10,8 @@ is printed):
   2. build the kernels from ``csrc/``, one nvcc per source, all at once: the
      ConvNeXt-block forward (K1), the block backwards (K2 and K4, one
      source), the standalone depthwise 7x7 (K3) and the kernel lab (K5);
-     time the builds;
+     time the builds, print registers and spills, and K2's Hopper row pass's
+     shared memory and CTAs per SM at each of its widths;
   3. K1 against its plain twin at the four 640^2 stage shapes (batch 2),
      an odd non-square shape and a narrow (C=48) one, in bf16 (atol/rtol 3e-2) and fp32 (atol/rtol
      1e-2: the kernel's products run in TF32, the twin in full fp32); then
@@ -27,16 +30,28 @@ is printed):
      passes ~250 anchors per image, with NMS and instance masks; NMS at that
      confidence and over all 16 x 8400 anchors (conf 0) must keep on the
      card what it keeps on the CPU;
-  5. NMS and whole-request times (host clock), and batch-16 forward times
-     with ``pallas="on"`` and ``"off"`` (CUDA events, in turns off/on/on/off);
+  5. NMS and whole-request times (host clock); the same weights under
+     ``pallas="auto"`` (K1 at stages 0-2, the eager block at C = 768): 15 K1
+     launches per forward, outputs against ``"on"``; batch-16 forward times
+     with ``pallas="off"``, ``"on"`` and ``"auto"`` (CUDA events, two turns,
+     and profiler device time; "[model-time]");
+     "[infer-cli]": the served weights written as a checkpoint
+     (``torch_to_flax`` + ``save_npz``) and two PNGs (512x384, 400x400),
+     ``cli.infer.main`` run in process at the serving confidence, each
+     record equal to ``infer_batch``'s on the same canvas;
   6. K1's residual-saving form (``out`` and the saved ``y``) and K2 against
      their plain versions at the stage shapes (batch 2), the odd shape and
-     C=48, bf16 and fp32 (tolerances as in phase 3; K2's parameter gradients,
-     sums over up to 204 800 pixels, judged against their own scale:
-     max |got - want| <= tol * max |want|); then at the batch-8 stage shapes
-     of the train path, the same checks in bf16, and K2 (on the operands
-     that the forward folded), its plain version, the eager block's autograd
-     backward and the saving form timed with CUDA events;
+     C=48, and for K2 batch 1 at 13x11 at C = 48 / 96 / 192 / 384, bf16 and
+     fp32 (tolerances as in phase 3; K2's parameter gradients, sums over up
+     to 204 800 pixels, judged against their own scale: max |got - want| <=
+     tol * max |want|; two K2 calls equal bit for bit); then at the batch-8
+     stage shapes of the train path, the same checks in bf16, and K2 (on
+     the operands that the forward folded), its plain version, the eager
+     block's autograd backward and the saving form timed with CUDA events,
+     K2 beside its time before the Hopper pipeline (the first design's,
+     PERF.md §6); "[k2-split]": K2's device time per launch by kernel at the
+     three batch-8 stage shapes (``torch.profiler``), at most five launches
+     per call in bf16; the same in fp32, which runs K2's first design;
   7. the full-width v1 train step (batch 8, 640^2, bf16, seeded random
      weights as in phase 4, a synthetic seeded batch: 3 boxes per image,
      box-shaped masks, random image classes) through ``make_train_step``: 3
@@ -92,12 +107,16 @@ last ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import argparse
+import contextlib
 import dataclasses
+import io
 import json
 import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import torch
 import torch.nn.functional as F
@@ -113,6 +132,12 @@ PEAK_BF16, PEAK_TF32, PEAK_FP32, PEAK_BYTES = 989e12, 495e12, 67e12, 3.35e12
 BF16_TOL = 3e-2
 FP32_TOL = 1e-2
 CANDIDATES = 250  # anchors per image above the serving confidence
+# K2 per call at the batch-8 stage shapes before its Hopper pipeline, by C
+# (the first design: sixteen launches, wmma; measured by an earlier version
+# of this script on an NVIDIA H100 80GB HBM3 at 700.00 W, PERF.md §6). Only
+# the "[k2-time]" text quotes it: the kernels line holds this run's numbers.
+K2_MS_BEFORE = {96: 3.202, 192: 2.049, 384: 1.679}
+K2_MAX_LAUNCHES = 5  # per bf16 call of the Hopper pipeline
 
 
 def log(*a):
@@ -146,18 +171,10 @@ def device_ms(fn, key="", iters=20) -> float:
     warm-up call): the kernels alone, without the host's share of a call,
     which CUDA events around back-to-back calls take in when the host issues
     the calls slower than the device runs them."""
-    fn()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.device_time for e in prof.events()
-                if e.device_type == torch.autograd.DeviceType.CUDA and key in e.name)
+    total = sum(v["ms"] for k, v in kernel_split(fn, iters).items() if key in k)
     if total <= 0:
         raise RuntimeError(f"the profiler recorded no device time for {key or 'the call'}")
-    return total / 1e3 / iters
+    return total
 
 
 def block_args(gen, b, h, w, c, dtype, dev):
@@ -430,21 +447,108 @@ def phase_model(cnb, dev, gen):
     log(f"[serve-time] batch-{BATCH} forward + NMS + instance masks: {serve_ms} ms "
         f"(host clock, synchronised; {BATCH * 1000 / serve_ms[2]:.1f} img/s at the median)")
 
+    # "auto": K1 on stages 0-2, the eager block at C = 768 (15 launches)
+    set_pallas(model, "auto")
+    auto_want = sum(d for c, _, d in STAGES if c <= 384)
+    cnb.convnext_block.launches = 0
+    auto_out = infer_batch(model, requests[0], **serve).outputs
+    torch.cuda.synchronize()
+    if cnb.convnext_block.launches != auto_want:
+        raise RuntimeError(f"pallas=auto: K1 launched {cnb.convnext_block.launches} times per "
+                           f"forward, want {auto_want}")
+    for k in ("cls_probs", "seg_prob", "det_preds"):
+        err = check_close(f"model {k} auto vs on", unit_boxes(auto_out)[k], on[k], BF16_TOL)
+        log(f"[model] {k}: auto vs on max_abs_err {err:.3e} (atol/rtol {BF16_TOL})")
+
     x = requests[0].float() / 255.0
-    times = {"on": [], "off": []}
-    for mode in ("off", "on", "on", "off"):
+    modes = ("off", "on", "auto")
+    times = {m: [] for m in modes}
+    for mode in modes + modes[::-1]:
         set_pallas(model, mode)
         times[mode].append(cuda_ms(lambda: model(x), iters=10, warmup=2))
+    dev_ms = {}
+    for mode in modes:
+        set_pallas(model, mode)
+        dev_ms[mode] = device_ms(lambda: model(x), iters=5)
     torch.cuda.reset_peak_memory_stats()
     set_pallas(model, "on")
     model(x)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() / 2**30
-    on_ms, off_ms = sum(times["on"]) / 2, sum(times["off"]) / 2
-    log(f"[model-time] batch-{BATCH} {IMG}^2 bf16 forward: pallas=on {times['on']} ms "
-        f"(mean {on_ms:.3f}), pallas=off {times['off']} ms (mean {off_ms:.3f}); "
-        f"{BATCH * 1000 / on_ms:.1f} img/s with K1; peak memory {peak:.2f} GiB")
-    return launches
+    mean = {m: sum(times[m]) / 2 for m in modes}
+    log(f"[model-time] batch-{BATCH} {IMG}^2 bf16 forward (CUDA events, two turns; "
+        f"profiler device time): " + ", ".join(
+            f"pallas={m} {times[m]} ms (mean {mean[m]:.3f}; device {dev_ms[m]:.3f})"
+            for m in modes)
+        + f"; {BATCH * 1000 / mean['on']:.1f} img/s with K1 on every stage, "
+        f"{BATCH * 1000 / mean['auto']:.1f} under auto; peak memory {peak:.2f} GiB")
+    if mean["auto"] > mean["on"]:
+        log(f"[model-time] NOTE: the forward under auto ({mean['auto']:.3f} ms) is slower "
+            f"than under on ({mean['on']:.3f} ms)")
+    set_pallas(model, "on")
+    return launches, model, conf
+
+
+def phase_infer_cli(cnb, model, conf, dev, gen):
+    """``cli.infer.main`` in process on the card: the serving model's weights
+    written as a checkpoint (``torch_to_flax`` + ``save_npz``), two PNGs
+    (512x384 and 400x400) written by the port's codec, run at the serving
+    confidence; each record of ``predictions.json`` must equal
+    ``infer_batch`` of a model with the CLI's ``pallas`` setting ("auto")
+    loaded from the same checkpoint, on the same letterboxed canvas."""
+    import numpy as np
+
+    from multitask_bonetumor_yolo_tpu_torch.bridge import save_npz, torch_to_flax
+    from multitask_bonetumor_yolo_tpu_torch.cli import infer
+    from multitask_bonetumor_yolo_tpu_torch.data.imageio import write_png
+    from multitask_bonetumor_yolo_tpu_torch.models import ModelConfig
+
+    work = Path(__file__).resolve().parent / "build" / "infer_cli"
+    work.mkdir(parents=True, exist_ok=True)
+    ckpt = work / "weights.npz"
+    save_npz(str(ckpt), *torch_to_flax(model.state_dict()))
+    paths = []
+    for name, (h, w) in (("wide.png", (384, 512)), ("square.png", (400, 400))):
+        img = torch.randint(0, 256, (h, w, 3), generator=gen, device=dev, dtype=torch.uint8)
+        write_png(work / name, img.cpu().numpy())
+        paths.append(str(work / name))
+    out = work / "out"
+    cnb.convnext_block.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):  # one JSON record per image
+        infer.main(["--checkpoint-path", str(ckpt), "--images", *paths, "--out-dir", str(out),
+                    "--conf-thresh", repr(conf)])
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    cli_launches = cnb.convnext_block.launches
+    records = json.loads((out / "predictions.json").read_text())
+    ref = infer.load_model(ModelConfig(img_size=IMG, dtype="bfloat16"), str(ckpt), dev)
+    per_image = []
+    for rec, path in zip(records, paths):
+        t0 = time.perf_counter()
+        res = infer.infer_batch(ref, infer.load_and_letterbox(path, IMG)[None], conf_thresh=conf)
+        torch.cuda.synchronize()
+        per_image.append(time.perf_counter() - t0)
+        n = int(res.detections.valid[0].sum())
+        same = (rec["image"] == path and rec["num_detections"] == n
+                and rec["boxes_xyxy"] == res.detections.boxes[0, :n].tolist()
+                and rec["scores"] == res.detections.scores[0, :n].tolist()
+                and rec["labels"] == res.detections.labels[0, :n].tolist()
+                and rec["img_cls_probs"] == res.outputs["cls_probs"][0].float().tolist())
+        if not same or n == 0:
+            raise RuntimeError(f"[infer-cli] {path}: main's record ({rec['num_detections']} "
+                               f"detections) differs from infer_batch's ({n})")
+    want = len(paths) * sum(d for c, _, d in STAGES if c <= 384)
+    if cli_launches != want:
+        raise RuntimeError(f"[infer-cli] main launched K1 {cli_launches} times, want {want}")
+    names = ", ".join(Path(p).name for p in paths)
+    log(f"[infer-cli] cli.infer.main on {len(paths)} PNGs ({names}) "
+        f"at conf {conf:.4g}: {main_s:.3f} s in all (checkpoint load and first calls included), "
+        f"records equal to infer_batch's ({[r['num_detections'] for r in records]} detections); "
+        f"PNG read + letterbox + infer_batch per image {[round(t * 1e3, 1) for t in per_image]} "
+        f"ms (host clock); K1 launches {cli_launches}")
+    del ref
+    return main_s
 
 
 def check_grads(name, got, want, tol):
@@ -463,8 +567,11 @@ def check_grads(name, got, want, tol):
 
 
 def phase_training_kernels(cnb, k2, dev, gen):
-    """K1's saving form and K2 against their plain versions, then K2 timed."""
-    shapes = [(2, s, s, c) for c, s, _ in STAGES] + [(1, 13, 21, 96), (3, 7, 5, 48)]
+    """K1's saving form and K2 against their plain versions, then K2 timed.
+    Besides the stage shapes, batch 1 at 13x11 (143 pixels: a partial
+    64-pixel tile of K2's row pass) at each width of its Hopper pipeline."""
+    shapes = ([(2, s, s, c) for c, s, _ in STAGES] + [(1, 13, 21, 96), (3, 7, 5, 48)]
+              + [(1, 13, 11, c) for c in (48, 96, 192, 384)])
     err_sav, err_dx, err_scale = 0.0, 0.0, 0.0
     for shape in shapes:
         for dt, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, FP32_TOL)):
@@ -474,7 +581,10 @@ def phase_training_kernels(cnb, k2, dev, gen):
             g = torch.randn(shape, generator=gen, device=dev).to(dt)
             got = k2.convnext_block_bwd(x, want_y, g, *params)
             want = k2.convnext_block_bwd_plain(x, want_y, g, *params)
+            again = k2.convnext_block_bwd(x, want_y, g, *params)
             torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise RuntimeError(f"K2 {shape} {dt}: two calls differ (want bit for bit)")
             e_out = check_close(f"K1 saving {shape} {dt} out", out, want_out, tol)
             e_y = check_close(f"K1 saving {shape} {dt} y", y, want_y, tol)
             e_dx, e_sc = check_grads(f"K2 {shape} {dt}", got, want, tol)
@@ -484,7 +594,8 @@ def phase_training_kernels(cnb, k2, dev, gen):
             log(f"[k2] {shape} {str(dt):15s} K1 saving out {e_out:.3e} y {e_y:.3e}; "
                 f"K2 dx {e_dx:.3e}, gradients {e_sc:.3e} of scale (tol {tol})")
 
-    per_stage, totals = [], {"k2": 0.0, "plain": 0.0, "eager": 0.0, "sav": 0.0, "sav_plain": 0.0}
+    per_stage, totals = [], {"k2": 0.0, "plain": 0.0, "eager": 0.0, "sav": 0.0,
+                             "sav_plain": 0.0}
     train_stages = STAGES[:3]  # the stages that train through K2 under "auto"
     totals["bound"] = depth_sum(
         [k2_bound(TRAIN_BATCH, s, s, c) for c, s, _ in train_stages], train_stages)
@@ -500,7 +611,11 @@ def phase_training_kernels(cnb, k2, dev, gen):
         g = torch.randn_like(out)
         got = k2.convnext_block_bwd(x, y, g, *params, ops=ops)
         want = k2.convnext_block_bwd_plain(x, y, g, *params)
+        again = k2.convnext_block_bwd(x, y, g, *params, ops=ops)
         torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise RuntimeError(f"K2 {shape}: two calls differ (want bit for bit)")
+        del again
         # the main path's shapes, where K2's split-K plan (slices over B*H*W)
         # differs from batch 2's
         e_out = check_close(f"K1 saving {shape} out", out, want_out, BF16_TOL)
@@ -531,11 +646,78 @@ def phase_training_kernels(cnb, k2, dev, gen):
             totals[key] += depth * v
         log(f"[k2] {shape} bf16 K1 saving out {e_out:.3e} y {e_y:.3e}; K2 dx {e_dx:.3e}, "
             f"gradients {e_sc:.3e} of scale (tol {BF16_TOL})")
-        log(f"[k2-time] {shape} bf16: K2 {t_k2:.4f}/{t_k2b:.4f} ms "
-            f"(bound {b_ms:.4f} ms, {b_by}), plain {t_plain:.4f} ms, eager autograd backward "
+        log(f"[k2-time] {shape} bf16: K2 {t_k2:.4f}/{t_k2b:.4f} ms (the first design "
+            f"{K2_MS_BEFORE[c]} ms, PERF.md §6; bound {b_ms:.4f} ms, {b_by}), "
+            f"plain {t_plain:.4f} ms, eager autograd backward "
             f"{t_eager:.4f} ms; K1 saving form {t_sav:.4f} ms (plain {t_sav_plain:.4f}, "
             f"bound {sb_ms:.4f} ms, {sb_by})")
     return err_sav, err_dx, err_scale, per_stage, totals
+
+
+def kernel_split(fn, iters=10):
+    """Device time and launches per call of ``fn``, by kernel (the name up to
+    its argument list), from ``torch.profiler`` after one warm-up call: each
+    kernel's mean time per recorded launch times its launches per call. The
+    profiler can drop events on a loaded host (seen on the H100 machine: 9 of
+    10 launches of a kernel recorded), so a kernel's launches per call are
+    its recorded count over ``iters`` rounded to a whole number, and the
+    split fails when that count is not within a quarter of a whole, nonzero
+    number of launches per call; ``recorded`` keeps the raw ratio."""
+    from collections import defaultdict
+
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts, acc_events=True) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    ms, n = defaultdict(float), defaultdict(int)
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = e.name.replace("(anonymous namespace)::", "").replace("void ", "")
+            name = name.split("(")[0]
+            ms[name] += e.device_time / 1e3
+            n[name] += 1
+    if not ms:
+        raise RuntimeError("the profiler recorded no device time")
+    out = {}
+    for k in sorted(ms, key=lambda k: -ms[k]):
+        ratio = n[k] / iters
+        per_call = round(ratio)
+        if per_call < 1 or abs(ratio - per_call) > 0.25 * per_call:
+            raise RuntimeError(f"the profiler recorded {n[k]} launches of {k} over {iters} calls: "
+                               f"not a whole number per call")
+        out[k] = {"ms": ms[k] / n[k] * per_call, "launches": per_call, "recorded": ratio}
+    return out
+
+
+def phase_k2_split(cnb, k2, dev, gen):
+    """"[k2-split]": K2's device time per launch, by kernel, at the three
+    batch-8 stage shapes that train through it, on the operands the forward
+    folds: in bf16 (the Hopper pipeline, at most five launches per call) and
+    in fp32, which runs the first design, the bf16 pipeline's predecessor."""
+    out = []
+    for dt in (torch.bfloat16, torch.float32):
+        for c, s, _ in STAGES[:3]:
+            shape = (TRAIN_BATCH, s, s, c)
+            x, *params = block_args(gen, *shape, dt, dev)
+            ops = cnb.kernel_operands(params, x.dtype, backward=True)
+            _, y = cnb.convnext_block_saving(x, *params, ops=ops)
+            g = torch.randn(shape, generator=gen, device=dev).to(dt)
+            split = kernel_split(lambda: k2.convnext_block_bwd(x, y, g, *params, ops=ops))
+            total = sum(v["ms"] for v in split.values())
+            launches = sum(v["launches"] for v in split.values())
+            out.append({"shape": list(shape), "dtype": str(dt), "device_ms": total,
+                        "launches_per_call": launches, "by_kernel": split})
+            if dt == torch.bfloat16 and launches > K2_MAX_LAUNCHES:
+                raise RuntimeError(f"[k2-split] {shape}: {launches:g} launches per call, want "
+                                   f"at most {K2_MAX_LAUNCHES}")
+            log(f"[k2-split] {shape} {dt}: {launches:g} launches, {total:.4f} ms device time "
+                f"per call; " + "; ".join(f"{k} x{v['launches']} ({v['recorded']:g} recorded) "
+                                          f"{v['ms']:.4f} ms" for k, v in split.items()))
+            del x, params, ops, y, g
+    return out
 
 
 def phase_dwconv(k3, dev, gen):
@@ -892,12 +1074,12 @@ def phase_lab(cnb, dev):
 
 # Device kernels by category, first match wins, against the lower-cased
 # demangled name. The port's kernels carry their own prefixes (K1
-# ``cnb_forward_kernel``, K2 and K4 ``cnb_bwd_*_kernel``, K3
-# ``cnb_dwconv7_kernel``), which no PyTorch kernel has.
+# ``cnb_forward_kernel``, K2 ``k2h::k2_*_kernel`` and ``cnb_bwd_spatial_kernel``,
+# K4 ``cnb_bwd_*_kernel``, K3 ``cnb_dwconv7_kernel``), which no PyTorch kernel has.
 CATEGORIES = (
     ("K1 (convnext_block.cu)", ("cnb_forward_kernel",)),
     ("K3 (dwconv.cuh)", ("cnb_dwconv7",)),
-    ("K2 (convnext_block_bwd.cu)", ("cnb_bwd_",)),
+    ("K2 (convnext_block_bwd.cu)", ("cnb_bwd_", "k2h::")),
     ("optimizer (foreach, flat AdamW)", ("foreach", "multi_tensor")),
     ("BatchNorm (incl. the running-statistics pass)",
      ("batch_norm", "batchnorm", "bn_fw", "bn_bw", "welford")),
@@ -928,7 +1110,7 @@ def profile_step(step, state, batch, gen) -> dict:
     step(state, batch, gen)
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    with torch.profiler.profile(activities=acts, acc_events=True) as prof:
         t0 = time.perf_counter()
         for _ in range(PROFILE_STEPS):
             step(state, batch, gen)
@@ -1103,7 +1285,22 @@ def timed_build(name):
     return path, report, time.perf_counter() - t0
 
 
-def main() -> int:
+PHASES = ("kernel", "model", "infer-cli", "k2", "k2-split", "train", "k3", "k4", "fwdbwd",
+          "lab")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description="Smoke run of the port on one GPU")
+    ap.add_argument("--only", default="",
+                    help="comma-separated phases to run, in the full run's order (of "
+                         + ", ".join(PHASES) + "; infer-cli brings model with it); a partial "
+                         "run prints no kernels line and no result line")
+    args = ap.parse_args(argv)
+    only = set(filter(None, args.only.split(",")))
+    if only - set(PHASES):
+        raise SystemExit(f"unknown phases {sorted(only - set(PHASES))}")
+    if "infer-cli" in only:  # it serves the model phase's model
+        only.add("model")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
@@ -1116,11 +1313,14 @@ def main() -> int:
     log(f"[card] {card}; torch {torch.__version__} cuda {torch.version.cuda}")
     dev = torch.device("cuda", 0)
     names = ("convnext_block", "convnext_block_bwd", "dwconv", "kernel_lab")
+    if only and "lab" not in only:
+        names = names[:3]
     with ThreadPoolExecutor(len(names)) as ex:
         builds = dict(zip(names, ex.map(timed_build, names)))
     for name, (path, report, secs) in builds.items():
         log(f"[build] {path.name} in {secs:.2f} s (the builds ran in parallel)")
-        lines = [ln.strip() for ln in report.splitlines() if "registers" in ln or "spill" in ln]
+        lines = [ln.strip() for ln in report.splitlines() if "registers" in ln or "spill" in ln
+                 or ("Compiling entry" in ln and "k2h" in ln)]
         if name == "kernel_lab":  # ~90 instantiations: a summary
             regs = [int(ln.split("Used ")[1].split()[0]) for ln in lines if "Used " in ln]
             spills = [ln for ln in lines if "spill" in ln and not ln.startswith("0 bytes spill")
@@ -1130,16 +1330,49 @@ def main() -> int:
             continue
         for line in lines:
             log(f"[build] {line}")
+    for c in (48, 96, 192, 384):  # K2's Hopper row pass, one instantiation per width
+        log(f"[build] K2 row pass at C={c}: {json.dumps(k2.row_pass_config(c))}")
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    max_err, per_stage, k_ms, p_ms = phase_kernel(cnb, dev, gen)
-    launches = phase_model(cnb, dev, gen)
-    err_sav, err_dx, err_scale, bwd_stages, tot = phase_training_kernels(cnb, k2, dev, gen)
-    _, n_saving, n_bwd = phase_train(cnb, k2, dev, gen)
-    err_k3, k3_stages = phase_dwconv(k3, dev, gen)
-    err_k4_dx, err_k4_scale, k4_stages = phase_bwd_v1(cnb, k2, dev, gen)
-    fb_launches, fb_table, fb_totals, fb_grad_err = phase_block_fwdbwd(cnb, k2, k3, dev, gen)
-    lab_entry = phase_lab(cnb, dev)
+    r = {}  # each phase's result, by phase
+
+    def infer_cli():
+        launches, model, conf = r["model"]
+        r["model"] = (launches,)  # the served model is freed before the train phases
+        return phase_infer_cli(cnb, model, conf, dev, gen)
+
+    table = (
+        ("kernel", lambda: phase_kernel(cnb, dev, gen)),
+        ("model", lambda: phase_model(cnb, dev, gen)),
+        ("infer-cli", infer_cli),
+        ("k2", lambda: phase_training_kernels(cnb, k2, dev, gen)),
+        ("k2-split", lambda: phase_k2_split(cnb, k2, dev, gen)),
+        ("train", lambda: phase_train(cnb, k2, dev, gen)),
+        ("k3", lambda: phase_dwconv(k3, dev, gen)),
+        ("k4", lambda: phase_bwd_v1(cnb, k2, dev, gen)),
+        ("fwdbwd", lambda: phase_block_fwdbwd(cnb, k2, k3, dev, gen)),
+        ("lab", lambda: phase_lab(cnb, dev)),
+    )
+    assert tuple(name for name, _ in table) == PHASES
+    for name, run in table:
+        if only and name not in only:
+            continue
+        t0 = time.perf_counter()
+        r[name] = run()
+        torch.cuda.empty_cache()
+        log(f"[phase] {name} took {time.perf_counter() - t0:.1f} s")
+    if only:  # a partial run, for bring-up: nothing is printed after its phases
+        return 0
+
+    max_err, per_stage, k_ms, p_ms = r["kernel"]
+    launches = r["model"][0]
+    err_sav, err_dx, err_scale, bwd_stages, tot = r["k2"]
+    k2_split = r["k2-split"]
+    _, n_saving, n_bwd = r["train"]
+    err_k3, k3_stages = r["k3"]
+    err_k4_dx, err_k4_scale, k4_stages = r["k4"]
+    fb_launches, fb_table, fb_totals, fb_grad_err = r["fwdbwd"]
+    lab_entry = r["lab"]
 
     infer_bound = depth_sum([k1_bound(BATCH, s, s, c) for c, s, _ in STAGES], STAGES)
     common = {"route": "cuda", "library_ms": None}
@@ -1160,7 +1393,10 @@ def main() -> int:
          "replaces": "multitask_bonetumor_yolo_tpu/ops/pallas/convnext_block_bwd.py:312",
          "launches": n_bwd, "max_abs_err": err_dx, "grad_err_of_scale": err_scale,
          "ms": tot["k2"], "plain_ms": tot["plain"], "bound_ms": tot["bound"][0],
-         "bound_by": tot["bound"][1], "eager_bwd_ms": tot["eager"], "per_stage": bwd_stages},
+         "bound_by": tot["bound"][1], "eager_bwd_ms": tot["eager"],
+         "launches_per_call": max(r["launches_per_call"] for r in k2_split
+                                  if r["dtype"] == "torch.bfloat16"),
+         "per_stage": bwd_stages, "split": k2_split},
         {"name": "dwconv7", "route": "cuda",
          "source": "multitask_bonetumor_yolo_tpu_torch/csrc/dwconv.cu",
          "replaces": "multitask_bonetumor_yolo_tpu/ops/pallas/dwconv.py:25",

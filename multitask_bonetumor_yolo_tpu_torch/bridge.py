@@ -20,7 +20,8 @@ inverse of ``multitask_bonetumor_yolo_tpu/utils/import_torch_weights.py``):
 The trees come in as nested dicts of numpy arrays (callers holding JAX
 arrays pass ``jax.tree.map(np.asarray, tree)``), so nothing here needs JAX.
 ``save_npz`` / ``load_npz`` store the same trees with ``/``-joined keys: the
-file ``cli/infer.py --checkpoint-path`` reads.
+file ``cli/infer.py --checkpoint-path`` reads. ``torch_to_flax`` is the
+inverse walk, for writing such a file from a torch model.
 """
 
 from __future__ import annotations
@@ -88,6 +89,57 @@ def flax_to_torch(params: Tree, batch_stats: Tree) -> Dict[str, torch.Tensor]:
         )
         sd[".".join(scope + ["num_batches_tracked"])] = torch.tensor(0)
     return sd
+
+
+def _unparam(key: str, a: np.ndarray) -> Tuple[Tuple[str, ...], np.ndarray]:
+    """Inverse of :func:`_param`: a torch key and tensor -> Flax path and leaf."""
+    *scope, name = key.split(".")
+    parent = scope[-1] if scope else ""
+    if _BLOCK.match(parent):
+        if name == "dw_kernel":
+            a = np.transpose(a, (2, 3, 1, 0))
+        elif name in ("w1", "w2"):
+            a = a.T
+    elif name == "weight":
+        if a.ndim == 1:  # a BN / LN scale
+            name = "scale"
+        else:
+            if parent == "upsample":
+                a = np.transpose(a, (2, 3, 0, 1))[::-1, ::-1]
+            elif a.ndim == 4:
+                a = np.transpose(a, (2, 3, 1, 0))
+            elif a.ndim == 2:
+                a = a.T
+            else:
+                raise ValueError(f"unexpected weight rank at {key}: {a.shape}")
+            name = "kernel"
+    return tuple(scope) + (name,), a
+
+
+def _insert(tree: Dict, path: Tuple[str, ...], a: np.ndarray) -> None:
+    for part in path[:-1]:
+        tree = tree.setdefault(part, {})
+    tree[path[-1]] = np.ascontiguousarray(a)
+
+
+def torch_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Tuple[Dict, Dict]:
+    """Inverse of :func:`flax_to_torch`: a ``MultitaskModel`` ``state_dict`` ->
+    Flax ``(params, batch_stats)`` nested dicts of fp32 numpy arrays
+    (``num_batches_tracked`` has no Flax leaf and is dropped), so that a
+    machine without JAX can write a checkpoint with :func:`save_npz`."""
+    params: Dict = {}
+    stats: Dict = {}
+    inv_stats = {v: k for k, v in _STATS.items()}
+    for key, t in state_dict.items():
+        *scope, name = key.split(".")
+        if name == "num_batches_tracked":
+            continue
+        a = t.detach().float().cpu().numpy()
+        if name in inv_stats:
+            _insert(stats, tuple(scope) + (inv_stats[name],), a)
+        else:
+            _insert(params, *_unparam(key, a))
+    return params, stats
 
 
 def save_npz(path: str, params: Tree, batch_stats: Tree) -> None:

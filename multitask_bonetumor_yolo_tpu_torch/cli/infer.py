@@ -1,10 +1,12 @@
 """CLI: image inference with the port (counterpart of the JAX ``cli/infer.py``).
 
     python -m multitask_bonetumor_yolo_tpu_torch.cli.infer \
-        --checkpoint-path weights.npz --images img1.jpeg img2.jpeg --out-dir out/
+        --checkpoint-path weights.npz --images img1.png img2.png --out-dir out/
 
 The flags are the JAX CLI's, except that ``--checkpoint-path`` names the
-bridge's ``.npz`` (``bridge.save_npz``; orbax checkpoints need JAX). Runs on
+bridge's ``.npz`` (``bridge.save_npz``; orbax checkpoints need JAX). PNG
+files are read by the port's own codec (``data/imageio.py``) on any machine;
+other formats need cv2 or PIL. Runs on
 ``--device`` (default ``cuda``, the first card; without one it raises unless
 the caller passes ``--device cpu``). Writes
 ``predictions.json`` (and ``<stem>_masks.npy`` with ``--instance-masks``);
@@ -26,6 +28,7 @@ import torch
 
 from ..bridge import flax_to_torch, load_npz
 from ..core.letterbox import PAD_VALUE, letterbox_geometry
+from ..data.imageio import read_png, resize_bilinear_u8
 from ..models import ModelConfig, MultitaskModel
 from ..ops.masks import compose_masks
 from ..ops.nms import NMSResult, postprocess_detections
@@ -66,11 +69,21 @@ def infer_batch(
 
 
 def _imread_color_rgb(path: str) -> np.ndarray:
-    try:  # cv2 is the fast path; PIL otherwise
+    """uint8 [H, W, 3] RGB. A ``.png`` is read by the port's own codec on
+    every machine; any other file by cv2, else PIL, and without either it
+    raises: there is no substitute decoder."""
+    if Path(path).suffix.lower() == ".png":
+        return read_png(path)
+    try:
         import cv2
     except ImportError:
-        from PIL import Image
-
+        try:
+            from PIL import Image
+        except ImportError:
+            raise ImportError(
+                f"{path}: reading a {Path(path).suffix or 'suffix-less'} image needs cv2 or "
+                "PIL, and neither is installed; the port reads PNG itself "
+                "(data/imageio.py::read_png): pass .png files") from None
         return np.asarray(Image.open(path).convert("RGB"))
     img = cv2.imread(path)
     if img is None:
@@ -78,23 +91,14 @@ def _imread_color_rgb(path: str) -> np.ndarray:
     return cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
 
 
-def _resize(img: np.ndarray, w: int, h: int) -> np.ndarray:
-    try:
-        import cv2
-    except ImportError:
-        from PIL import Image
-
-        return np.asarray(Image.fromarray(img).resize((w, h), Image.BILINEAR))
-    return cv2.resize(img, (w, h), interpolation=cv2.INTER_LINEAR)
-
-
 def load_and_letterbox(path: str, img_size: int) -> np.ndarray:
-    """Top-left letterbox with gray(114) padding, uint8 [S, S, 3]."""
+    """Top-left letterbox with gray(114) padding, uint8 [S, S, 3]; the resize
+    is always the port's own (cv2's ``INTER_LINEAR``, within 1 LSB)."""
     img = _imread_color_rgb(path)
     h0, w0 = img.shape[:2]
     _, nh, nw = letterbox_geometry(h0, w0, img_size)
     canvas = np.full((img_size, img_size, 3), PAD_VALUE, np.uint8)
-    canvas[:nh, :nw] = _resize(img, nw, nh)
+    canvas[:nh, :nw] = resize_bilinear_u8(img, nw, nh)
     return canvas
 
 

@@ -5,61 +5,84 @@
 // convnext_block_bwd.py::_kernel_v2 (driven by fused_block_bwd_v2): from the
 // block input x, the dwconv output y saved by the residual-saving forward
 // (csrc/convnext_block.cu, SAVE) and the cotangent g, it computes dx and the
-// fp32 gradients of the nine raw parameters. Math, as the TPU kernel does it
-// (per pixel, C channels, hidden width 4C; dt = compute dtype):
+// fp32 gradients of the nine raw parameters. Math (per pixel, C channels,
+// hidden width 4C; dt = compute dtype):
 //
 //   z   = (y - mean) * r,  r = rsqrt(max(E[y^2] - mean^2, 0) + eps)
 //   h1  = dt(z) @ w1' + b1'                    w1' = ln_scale * w1 (folded)
 //   d_a = dt(g) @ w2'^T                        w2' = w2 * gamma (folded)
 //   d_h = d_a * gelu_tanh'(h1),  a = gelu_tanh(h1)
-//   d_z = dt(d_h) @ w1'^T,  d_z2 = dt(d_h) @ w1^T,  o = dt(a) @ w2 + b2
+//   d_z2 = dt(d_h) @ dt(w1)^T,  d_z = ln_scale * d_z2
 //   d_y = r * (d_z - mean(d_z) - z * mean(d_z * z))
 //   dx  = corr7x7(d_y, flipped taps) + g
-//   grads: dgamma = sum g*o; db2 = sum dt(g*gamma); dw2 = dt(a)^T dt(g*gamma);
+//   grads: W = dt(g)^T dt(a) [C, 4C];  dw2 = gamma * W;
+//          dgamma = sum_j dt(w2) * W + b2 * sum g;  db2 = sum dt(g*gamma);
 //          db1 = sum d_h; dw1 = dt(z*ln_scale + ln_bias)^T dt(d_h);
 //          dln_scale = sum d_z2*z; dln_bias = sum d_z2; db_dw = sum d_y;
 //          dtaps[i][j] = sum x[p + (i-3, j-3)] * d_y[p]
-// (sums over all B*H*W pixels).
+// (sums over all B*H*W pixels). The TPU kernel runs seven products: d_z
+// through the folded w1', o = dt(a) @ dt(w2) + b2 for dgamma = sum g * o, and
+// dw2 from dt(g * gamma). The derived forms above are the same function up
+// to rounding (fp32 rounding in fp32; in bf16 the roundings of w1' and
+// g * gamma move) and need five.
 //
 // What bounds it on an H100 (SXM datasheet: 989 TFLOP/s bf16 dense, 67
-// TFLOP/s fp32 outside the tensor cores, 3.35 TB/s): the function needs five
-// products of 8*C^2 flop per pixel (h1, d_a, d_z2 and the two weight
-// gradients: d_z = ln_scale * d_z2, and dgamma = sum_j w2 . (g^T a) + b2 *
-// sum g comes from the dw2 product), 40*C^2 flop per pixel on the tensor
+// TFLOP/s fp32 outside the tensor cores, 3.35 TB/s): five products of 8*C^2
+// flop per pixel (h1, d_a, d_z2, dw1, W), 40*C^2 flop per pixel on the tensor
 // cores; at batch 8 and 640^2 that is 8*H*W*C^2 = 1.89e9 times 40, ~75.5
 // GFLOP per block at every stage (H*W*C^2 is the same at all four), ~0.076
 // ms at peak. The two 7x7 passes (2 x 98*C flop per pixel on the fp32 cores,
 // ~0.058 ms at stage 0) run on other units and can overlap them; the bytes
 // it must move are x, y, g in and dx out (4 x 2*C per pixel in bf16, ~0.047
-// ms at stage 0): bound by the products. This kernel computes seven, by
-// design: d_z through the folded w1' and o = a @ w2 for dgamma, as the TPU
-// kernel does (each a bf16 rounding apart from the derived form).
+// ms at stage 0): bound by the products.
 //
-// What the design does about it (a first, simple design: wmma tensor-core
-// products, no TMA/wgmma yet):
-//   * the TPU kernel sums the nine parameter gradients across its sequential
-//     grid; on Hopper the CTAs run in parallel, so every CTA writes its own
-//     fp32 partial and one reduction kernel per gradient sums the partials in
-//     a fixed order: the result is the same bit for bit from run to run (no
-//     atomics anywhere);
-//   * per-CTA partials of the two [C, 4C] weight gradients do not fit at
-//     C = 384, so the per-pixel passes write dt(d_h) and dt(a) ([P, 4C], the
-//     compute dtype) and dt(z*ln_scale + ln_bias), dt(g*gamma) ([P, C]) to
-//     device memory, and the weight gradients are split-K products over the
-//     pixels (K = B*H*W), each CTA one 64x64 output tile over one K slice;
-//   * seven launches and nine reductions: prep (LN moments, the dt operands,
-//     db2), hidden (h1 and d_a for a 64-pixel x 64-hidden tile, GELU and its
-//     derivative in the epilogue, db1), channel (d_z, d_z2 and o for a
-//     64-pixel x 64-channel tile, dgamma / dln_scale / dln_bias in the
-//     epilogue), row (d_y from d_z), spatial (dx and the tap / dw-bias
-//     partials from a +-3 halo tile of d_y and x, channel chunk by chunk),
-//     and the two weight-gradient products.
-// The cost of this split is device-memory traffic the TPU kernel avoids
-// (~8 KB per pixel in bf16: the [P, 4C] dt(d_h) and dt(a) written once and
-// read twice, d_z in fp32): ~0.5 ms at batch 8, bytes-bound, not
-// operations-bound. Keeping d_h and a on chip needs the weight gradients
-// reduced across CTAs from registers (a later PR).
+// What the design does about it, in bf16 up to C = 384 (namespace k2h, the
+// Hopper pipeline; four launches, no atomics, the same bits every run):
+//   1. row pass, one CTA (two warpgroups) per 64 pixels: y and g into
+//      shared memory by cp.async, LN moments (four threads per pixel), dt(z)
+//      and dt(g) as wgmma A tiles, and for each chunk of
+//      NC hidden columns (w1'^T, w2' and w1^T chunks by cp.async, each load
+//      overlapping the product that does not read it): h1 and d_a on wgmma
+//      (each warpgroup half the chunk's columns), the GELU and its
+//      derivative on the accumulator registers, dt(d_h) into shared memory
+//      and, with dt(a), out to device memory once, transposed ([4C, P]);
+//      d_z2 += dt(d_h) w1 on wgmma into a [64, C] fp32 accumulator split
+//      over the two warpgroups by columns. Then d_z = ln_scale * d_z2 and
+//      d_y (fp32 to device memory for the spatial pass), and the per-CTA
+//      partials of dln_scale, dln_bias, db1, db2 and sum g. dt(z * ln_scale
+//      + ln_bias) and dt(g) go out transposed ([C, P]) for the weight pass.
+//      Shared memory: dt(z), dt(g) and three weight chunks, 211 KB at
+//      C = 384 (NC = 32, one CTA per SM), 147 KB at C = 192 (NC = 64, one),
+//      103 KB at C = 96 (NC = 64, two: 128 registers).
+//   2. weight pass: dw1^T = z2d^T dt(d_h) and W = dt(g)^T dt(a), [C, 4C] over
+//      K = the pixels, split-K into fp32 partials; one CTA (two warpgroups)
+//      per 128 x 128 tile and slice, K-major tiles (the row pass wrote them
+//      transposed, so no operand needs wgmma's transpose) through a 3-deep
+//      cp.async ring, m64n64k16 products; W's CTAs also form dgamma's
+//      partials, sum_j dt(w2) W over their columns.
+//   3. spatial pass (cnb_bwd_spatial_kernel, the first design's): dx, and
+//      the partials of the taps' and the dw bias' gradients from d_y.
+//   4. one reduction launch over a table of segments, every sum in a fixed
+//      order; it also forms dw2 = gamma * W, writes dw1 in the port's
+//      [4C, C] and adds b2 * sum g to dgamma.
+// d_h and a ([P, 4C] bf16, 157 MB each at stage 0) are written once and read
+// once: keeping them on chip needs a per-CTA fp32 partial of a [4C, C]
+// weight gradient (147 KB at C = 96, 2.4 MB at C = 384), more than an SM
+// holds. Every operand tile is K-major in the 128-byte swizzle (wgmma.cuh).
 //
+// fp32, and bf16 wider than 384 (whose dt(z) and dt(g) tiles, 96 KB each at
+// C = 768, do not fit beside the weight chunks), run the first design: wmma
+// tensor-core products on 64 x 64 tiles, no TMA or wgmma, sixteen launches:
+//   * prep (LN moments, the dt operands, db2), hidden (h1 and d_a for a
+//     64-pixel x 64-hidden tile, GELU and its derivative in the epilogue,
+//     db1), channel (d_z, d_z2 and o for a 64-pixel x 64-channel tile,
+//     dgamma / dln_scale / dln_bias in the epilogue: the TPU kernel's seven
+//     products), row (d_y from d_z), spatial, the two weight-gradient
+//     products split-K over the pixels, and nine reductions, one per
+//     gradient, each in a fixed order;
+//   * its device-memory traffic is ~8 KB per pixel in bf16 (the [P, 4C]
+//     dt(d_h) and dt(a) written once and read twice, d_z in fp32).
+
 // Kernel K4, the recompute-form backward (cnb_backward_v1), is the same
 // pipeline under the template flag V1. It replaces the TPU kernel
 // multitask_bonetumor_yolo_tpu/ops/pallas/convnext_block_bwd.py::_kernel
@@ -86,6 +109,7 @@
 
 #include "cuda_common.cuh"
 #include "dwconv.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -737,12 +761,760 @@ int backward(const void* const* p, void* ws, int B, int H, int W, int C, float e
   return reduce(wf(10), outf(23), pl.nmt, C, s);                        // gamma
 }
 
+// ===========================================================================
+// K2 in bf16 on Hopper (C <= 384): four launches, the products on wgmma.
+// ===========================================================================
+namespace k2h {
+
+using bf16 = __nv_bfloat16;
+constexpr int TM = 64;       // pixels per row-pass CTA: wgmma's M
+constexpr int RT = 256;      // row-pass threads: two warpgroups
+constexpr int WT = 256;      // weight-pass threads: two warpgroups
+constexpr int WM = 128;      // weight-pass tile: 128 x 128, 64 rows per warpgroup
+constexpr int WK = 64;       // weight-pass K (pixels) per stage
+constexpr int WST = 3;       // weight-pass stages in the ring
+constexpr int HMAXC = 384;   // widest C the row pass holds on chip
+constexpr size_t WTILE = size_t(WM) * 128;  // one 128-row x 64-column bf16 tile
+constexpr int SST = TM + 8;  // row stride of the transposed d_h / a staging: no bank conflicts
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// the dynamic shared memory, its base rounded up to the 1024 bytes the
+// 128-byte swizzle is anchored to (the launch asks for 1024 bytes more)
+__device__ __forceinline__ unsigned char* smem_base(unsigned char* raw) {
+  const uint32_t a = smem_u32(raw);
+  return raw + (((a + 1023u) & ~1023u) - a);
+}
+__device__ __forceinline__ float bf(bf16 v) { return __bfloat162float(v); }
+
+// ---- row pass -------------------------------------------------------------
+struct RowArgs {
+  const bf16 *y, *g, *w1ft, *w2f, *w1t;  // [P,C], [P,C], [4C,C], [4C,C], [C,4C]
+  const float *b1f, *gamma, *lns, *lnb;
+  bf16 *dhT, *aT, *z2T, *gT;  // [4C,Pp], [4C,Pp], [C,Pp], [C,Pp]
+  float* dy;                  // [P,C]
+  float *db1p, *db2p, *sgp, *dlnsp, *dlnbp;  // [tiles,4C], [tiles,C] x 4
+  int P, Pp, C;
+  float eps;
+};
+
+// Shared memory of the row pass for channel capacity CP and hidden chunk NC.
+template <int CP, int NC>
+struct RowSmem {
+  static constexpr int KB = (CP + 63) / 64;  // 64-column blocks of C
+  static constexpr size_t Z = 0;                            // dt(z)  [64 px, CP] A operand
+  static constexpr size_t G = Z + size_t(KB) * TM * 128;   // dt(g)  [64 px, CP] A operand
+  static constexpr size_t W1 = G + size_t(KB) * TM * 128;  // w1'^T chunk [NC, CP] B operand
+  static constexpr size_t W2 = W1 + size_t(KB) * NC * 128; // w2' chunk   [NC, CP] B operand
+  static constexpr size_t W1T = W2 + size_t(KB) * NC * 128; // w1^T chunk [CP, NC] B operand
+  static constexpr size_t DH = W1T + size_t(CP) * 128;     // dt(d_h) [64 px, NC] A operand
+  static constexpr size_t ST = DH + size_t(TM) * 128;      // dt(d_h)^T, dt(a)^T [2][NC][SST]
+  static constexpr size_t MEAN = ST + size_t(2) * NC * SST * 2;  // mean, rstd [64] each
+  static constexpr size_t DB1 = MEAN + 2 * TM * 4;         // db1 per warp [4][NC]
+  static constexpr size_t ROWS = DB1 + 4 * NC * 4;         // row sums [2 wg][64][2]
+  static constexpr size_t BYTES = ROWS + 2 * TM * 2 * 4;
+  // the prologue stages dt(z * lns + lnb)^T and dt(g)^T [C][64] in W1..DH,
+  // the epilogue the column partials [2 wg][4 warps][CP/2][2]
+  static_assert(W1 + 2 * size_t(CP) * TM * 2 <= DH, "prologue staging overflows");
+  static_assert(W1 + size_t(2) * 4 * (CP / 2) * 2 * 4 <= DH, "epilogue staging overflows");
+};
+
+template <int CP, int NC>
+__device__ __forceinline__ void row_load_hidden(const RowArgs& a, unsigned char* S, int j0) {
+  using L = RowSmem<CP, NC>;
+  constexpr int CH = CP / 8;  // 16-byte chunks of a row of C
+  for (int i = threadIdx.x; i < 2 * NC * CH; i += RT) {
+    const int which = i / (NC * CH), n = (i / CH) % NC, ch = i % CH;
+    const bool in = ch * 8 < a.C;
+    const bf16* src = (which ? a.w2f : a.w1ft) + size_t(j0 + n) * a.C + ch * 8;
+    cp_async16_zfill(S + (which ? L::W2 : L::W1) + sm90::swz(NC, n, ch * 8), in ? src : a.w1ft, in);
+  }
+}
+
+template <int CP, int NC>
+__device__ __forceinline__ void row_load_dz2(const RowArgs& a, unsigned char* S, int j0) {
+  using L = RowSmem<CP, NC>;
+  constexpr int CH = NC / 8;
+  for (int i = threadIdx.x; i < CP * CH; i += RT) {
+    const int c = i / CH, ch = i % CH;
+    const bool in = c < a.C;
+    const bf16* src = a.w1t + size_t(c) * 4 * a.C + j0 + ch * 8;
+    cp_async16_zfill(S + L::W1T + sm90::swz(CP, c, ch * 8), in ? src : a.w1t, in);
+  }
+}
+
+// One CTA per 64 pixels: LN moments; dt(z), dt(g) into shared memory; then
+// for each chunk of NC hidden columns h1 = dt(z) w1' + b1' and d_a = dt(g)
+// w2'^T (warpgroup wg takes columns wg*NC/2..), GELU and its derivative on
+// the accumulators, dt(d_h) and dt(a) written transposed once, the db1
+// partial, and d_z2 += dt(d_h) w1 into a [64, CP] fp32 accumulator split
+// over the two warpgroups by columns; last d_z = lns * d_z2, d_y and the
+// column partials of the LN gradients. CP >= C is the instantiation's
+// width (channels past C are zero). The parameter vectors are read through
+// __ldg: read-only, so the compiler may keep those loads in flight across
+// the shared-memory stores.
+template <int CP, int NC>
+__global__ void __launch_bounds__(RT, CP <= 96 ? 2 : 1) k2_row_kernel(const RowArgs a) {
+  using L = RowSmem<CP, NC>;
+  constexpr int NH = NC / 2, ND = CP / 2, KS = CP / 16, KD = NC / 16, CH = CP / 8;
+  extern __shared__ unsigned char k2h_smem[];
+  unsigned char* S = smem_base(k2h_smem);
+  float* s_mean = reinterpret_cast<float*>(S + L::MEAN);
+  float* s_rstd = s_mean + TM;
+  float* s_db1 = reinterpret_cast<float*>(S + L::DB1);
+  float* s_rows = reinterpret_cast<float*>(S + L::ROWS);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wg = tid >> 7, wi = warp & 3;  // warpgroup, warp in it
+  const int C = a.C, P = a.P, tile = blockIdx.x, p0 = tile * TM;
+  const int C4 = 4 * C;
+
+  // y and g of the tile into the two A tiles by cp.async (zero past P and
+  // past C); g stays there, y becomes dt(z) in place
+  for (int i = tid; i < 2 * TM * CH; i += RT) {
+    const int which = i / (TM * CH), m = (i / CH) % TM, c0 = (i % CH) * 8, p = p0 + m;
+    const bool in = p < P && c0 < C;
+    const bf16* src = (which ? a.g : a.y) + size_t(p) * C + c0;
+    cp_async16_zfill(S + (which ? L::G : L::Z) + sm90::swz(TM, m, c0), in ? src : a.y, in);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // LN moments: four threads per pixel, each over every fourth 8-channel chunk
+  {
+    static_assert(RT == 4 * TM, "four threads per pixel");
+    const int m = tid >> 2, part = tid & 3;
+    float s = 0.f, s2 = 0.f;
+    for (int ch = part; ch < C / 8; ch += 4) {
+      const uint4 v = *reinterpret_cast<const uint4*>(S + L::Z + sm90::swz(TM, m, ch * 8));
+      const bf16* e = reinterpret_cast<const bf16*>(&v);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float f = bf(e[i]);
+        s += f;
+        s2 = fmaf(f, f, s2);
+      }
+    }
+#pragma unroll
+    for (int o = 1; o < 4; o <<= 1) {
+      s += __shfl_xor_sync(0xffffffffu, s, o);
+      s2 += __shfl_xor_sync(0xffffffffu, s2, o);
+    }
+    if (part == 0) {
+      const bool in = p0 + m < P;
+      const float mean = s / float(C);
+      s_mean[m] = in ? mean : 0.f;
+      s_rstd[m] = in ? rsqrtf(fmaxf(s2 / float(C) - mean * mean, 0.f) + a.eps) : 0.f;
+    }
+  }
+  __syncthreads();
+
+  // dt(z) in place; the weight pass's dt(z * lns + lnb)^T and dt(g)^T
+  // staged [C][64]
+  bf16* st_z2 = reinterpret_cast<bf16*>(S + L::W1);
+  bf16* st_g = st_z2 + size_t(C) * TM;
+  for (int i = tid; i < TM * CH; i += RT) {  // lanes along the pixels: no bank conflicts
+    const int m = i % TM, c0 = (i / TM) * 8;
+    if (c0 >= C) continue;  // zero already
+    uint4* zp = reinterpret_cast<uint4*>(S + L::Z + sm90::swz(TM, m, c0));
+    const uint4 yv = *zp;
+    const uint4 gv = *reinterpret_cast<const uint4*>(S + L::G + sm90::swz(TM, m, c0));
+    const bf16* ye = reinterpret_cast<const bf16*>(&yv);
+    const bf16* ge = reinterpret_cast<const bf16*>(&gv);
+    uint4 zv;
+    bf16* ze = reinterpret_cast<bf16*>(&zv);
+    const bool in = p0 + m < P;
+    const float mu = s_mean[m], r = s_rstd[m];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int c = c0 + e;
+      const float z = in ? (bf(ye[e]) - mu) * r : 0.f;
+      ze[e] = __float2bfloat16(z);
+      st_z2[c * TM + m] = __float2bfloat16(in ? z * __ldg(a.lns + c) + __ldg(a.lnb + c) : 0.f);
+      st_g[c * TM + m] = ge[e];
+    }
+    *zp = zv;
+  }
+  __syncthreads();
+  for (int i = tid; i < 2 * C * 8; i += RT) {
+    const int which = i / (C * 8), c = (i / 8) % C, q = i % 8;
+    const uint4 v = *reinterpret_cast<const uint4*>((which ? st_g : st_z2) + c * TM + q * 8);
+    *reinterpret_cast<uint4*>((which ? a.gT : a.z2T) + size_t(c) * a.Pp + p0 + q * 8) = v;
+  }
+  for (int c = warp; c < C; c += RT / 32) {  // db2 = sum dt(g * gamma), and sum g
+    const float gm = __ldg(a.gamma + c);
+    const float g0 = bf(st_g[c * TM + lane]), g1 = bf(st_g[c * TM + lane + 32]);
+    float s_g = g0 + g1;
+    float s_do = bf(__float2bfloat16(g0 * gm)) + bf(__float2bfloat16(g1 * gm));
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      s_g += __shfl_xor_sync(0xffffffffu, s_g, o);
+      s_do += __shfl_xor_sync(0xffffffffu, s_do, o);
+    }
+    if (lane == 0) {
+      a.db2p[size_t(tile) * C + c] = s_do;
+      a.sgp[size_t(tile) * C + c] = s_g;
+    }
+  }
+  sm90::fence_proxy();  // the A tiles, written by st.shared, are read by wgmma
+  __syncthreads();      // the staging is consumed: the weight tiles may land
+
+  const int nchunk = C4 / NC;
+  row_load_hidden<CP, NC>(a, S, 0);
+  cp_async_commit();
+  row_load_dz2<CP, NC>(a, S, 0);
+  cp_async_commit();
+
+  float acc[ND / 2];
+#pragma unroll
+  for (int i = 0; i < ND / 2; ++i) acc[i] = 0.f;
+  const int row0 = 16 * wi + (lane >> 2);  // this thread's rows: row0, row0 + 8
+  const int col0 = 2 * (lane & 3);         // and columns 8 i + col0 (+1)
+
+  for (int k = 0; k < nchunk; ++k) {
+    const int j0 = k * NC;
+    cp_async_wait<1>();  // this chunk's w1'^T and w2' (its w1^T may be in flight)
+    sm90::fence_proxy();
+    __syncthreads();
+    float hacc[NH / 2], dacc[NH / 2];
+#pragma unroll
+    for (int i = 0; i < NH / 2; ++i) hacc[i] = dacc[i] = 0.f;
+    sm90::fence();
+#pragma unroll
+    for (int s = 0; s < KS; ++s) {
+      const size_t ka = size_t(s >> 2) * TM * 128 + (s & 3) * 32;
+      const size_t kb = size_t(s >> 2) * NC * 128 + size_t(wg * NH) * 128 + (s & 3) * 32;
+      sm90::Mma<NH>::run(hacc, sm90::desc(S + L::Z + ka), sm90::desc(S + L::W1 + kb));
+      sm90::Mma<NH>::run(dacc, sm90::desc(S + L::G + ka), sm90::desc(S + L::W2 + kb));
+    }
+    sm90::commit();
+    sm90::wait<0>();
+
+    // GELU and its derivative on the accumulators
+    bf16* st_dh = reinterpret_cast<bf16*>(S + L::ST);
+    bf16* st_a = st_dh + NC * SST;
+#pragma unroll
+    for (int i = 0; i < NH / 8; ++i) {
+      const int n = wg * NH + 8 * i + col0;  // column in the chunk
+      float cs0 = 0.f, cs1 = 0.f;             // column sums of d_h over this thread's rows
+#pragma unroll
+      for (int hv = 0; hv < 2; ++hv) {
+        const int m = row0 + 8 * hv;
+        const bool in = p0 + m < P;
+        float dh[2], av[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          // 0.5 (1 + tanh u) = sigmoid(2u): one fast exp and one fast divide
+          const float hh = hacc[4 * i + 2 * hv + e] + __ldg(a.b1f + j0 + n + e);
+          const float u2 = 1.5957691216057308f * (hh + 0.044715f * hh * hh * hh);
+          const float sg = __fdividef(1.0f, 1.0f + __expf(-u2));
+          const float du = 0.7978845608028654f * (1.0f + 3.0f * 0.044715f * hh * hh);
+          const float dg = sg + hh * 2.0f * sg * (1.0f - sg) * du;
+          dh[e] = in ? dacc[4 * i + 2 * hv + e] * dg : 0.f;
+          av[e] = in ? hh * sg : 0.f;
+        }
+        cs0 += dh[0];
+        cs1 += dh[1];
+        const __nv_bfloat162 dh2 = __floats2bfloat162_rn(dh[0], dh[1]);
+        *reinterpret_cast<__nv_bfloat162*>(S + L::DH + sm90::swz(TM, m, n)) = dh2;
+        st_dh[n * SST + m] = dh2.x;
+        st_dh[(n + 1) * SST + m] = dh2.y;
+        st_a[n * SST + m] = __float2bfloat16(av[0]);
+        st_a[(n + 1) * SST + m] = __float2bfloat16(av[1]);
+      }
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1) {  // over the 8 row groups of the warp
+        cs0 += __shfl_xor_sync(0xffffffffu, cs0, o);
+        cs1 += __shfl_xor_sync(0xffffffffu, cs1, o);
+      }
+      if (lane < 4) {
+        s_db1[wi * NC + n] = cs0;
+        s_db1[wi * NC + n + 1] = cs1;
+      }
+    }
+    sm90::fence_proxy();
+    __syncthreads();  // d_h's A tile, the transposed staging and the db1 sums are complete
+    if (k + 1 < nchunk) row_load_hidden<CP, NC>(a, S, j0 + NC);
+    cp_async_commit();
+    for (int i = tid; i < 2 * NC * 8; i += RT) {
+      const int which = i / (NC * 8), n = (i / 8) % NC, q = i % 8;
+      const uint4 v = *reinterpret_cast<const uint4*>((which ? st_a : st_dh) + n * SST + q * 8);
+      *reinterpret_cast<uint4*>((which ? a.aT : a.dhT) + size_t(j0 + n) * a.Pp + p0 + q * 8) = v;
+    }
+    for (int n = tid; n < NC; n += RT)
+      a.db1p[size_t(tile) * C4 + j0 + n] =
+          ((s_db1[n] + s_db1[NC + n]) + s_db1[2 * NC + n]) + s_db1[3 * NC + n];
+    cp_async_wait<1>();  // this chunk's w1^T (the next chunk's w1'^T, w2' may be in flight)
+    sm90::fence_proxy();
+    __syncthreads();
+    sm90::fence();
+#pragma unroll
+    for (int s = 0; s < KD; ++s)
+      sm90::Mma<ND>::run(acc, sm90::desc(S + L::DH + s * 32),
+                         sm90::desc(S + L::W1T + size_t(wg * ND) * 128 + s * 32));
+    sm90::commit();
+    sm90::wait<0>();
+    __syncthreads();  // d_h's tile, the staging and w1^T's tile are free
+    if (k + 1 < nchunk) row_load_dz2<CP, NC>(a, S, j0 + NC);
+    cp_async_commit();
+  }
+  // y again, into the free dt(z) tile, for the fp32 z of the epilogue
+  for (int i = tid; i < TM * CH; i += RT) {
+    const int m = i / CH, c0 = (i % CH) * 8, p = p0 + m;
+    const bool in = p < P && c0 < C;
+    cp_async16_zfill(S + L::Z + sm90::swz(TM, m, c0), in ? a.y + size_t(p) * C + c0 : a.y, in);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // d_z = lns * d_z2; d_y = r (d_z - mean(d_z) - z mean(d_z z)); column
+  // partials of dln_scale = sum d_z2 z and dln_bias = sum d_z2
+  // this thread's two rows (row0, row0 + 8): their moments, held in
+  // registers across the loops below (the loops' shared stores would make
+  // the compiler reload them)
+  float mu[2], rsd[2];
+  bool rin[2];
+#pragma unroll
+  for (int hv = 0; hv < 2; ++hv) {
+    mu[hv] = s_mean[row0 + 8 * hv];
+    rsd[hv] = s_rstd[row0 + 8 * hv];
+    rin[hv] = p0 + row0 + 8 * hv < P;
+  }
+  // z of this thread's elements at row row0 + 8 hv and columns c, c + 1
+  auto z_at = [&](int hv, int c, float* z) {
+    const __nv_bfloat162 yy = *reinterpret_cast<const __nv_bfloat162*>(
+        S + L::Z + sm90::swz(TM, row0 + 8 * hv, c));
+    const bool in = rin[hv] && c < C;
+    z[0] = in ? (__low2float(yy) - mu[hv]) * rsd[hv] : 0.f;
+    z[1] = in ? (__high2float(yy) - mu[hv]) * rsd[hv] : 0.f;
+  };
+  float rs1[2] = {0.f, 0.f}, rs2[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < ND / 8; ++i) {
+    const int c = wg * ND + 8 * i + col0;
+    const float l0 = c < C ? __ldg(a.lns + c) : 0.f, l1 = c < C ? __ldg(a.lns + c + 1) : 0.f;
+#pragma unroll
+    for (int hv = 0; hv < 2; ++hv) {
+      float z[2];
+      z_at(hv, c, z);
+      const float dz0 = rin[hv] ? acc[4 * i + 2 * hv] * l0 : 0.f;
+      const float dz1 = rin[hv] ? acc[4 * i + 2 * hv + 1] * l1 : 0.f;
+      rs1[hv] += dz0 + dz1;
+      rs2[hv] += dz0 * z[0] + dz1 * z[1];
+    }
+  }
+#pragma unroll
+  for (int hv = 0; hv < 2; ++hv)
+#pragma unroll
+    for (int o = 1; o < 4; o <<= 1) {
+      rs1[hv] += __shfl_xor_sync(0xffffffffu, rs1[hv], o);
+      rs2[hv] += __shfl_xor_sync(0xffffffffu, rs2[hv], o);
+    }
+  if ((lane & 3) == 0)
+#pragma unroll
+    for (int hv = 0; hv < 2; ++hv) {
+      s_rows[(wg * TM + row0 + 8 * hv) * 2] = rs1[hv];
+      s_rows[(wg * TM + row0 + 8 * hv) * 2 + 1] = rs2[hv];
+    }
+  __syncthreads();
+  float m1[2], m2[2];  // mean(d_z) and mean(d_z z) of the two rows
+#pragma unroll
+  for (int hv = 0; hv < 2; ++hv) {
+    const int m = row0 + 8 * hv;
+    m1[hv] = (s_rows[m * 2] + s_rows[(TM + m) * 2]) / float(C);
+    m2[hv] = (s_rows[m * 2 + 1] + s_rows[(TM + m) * 2 + 1]) / float(C);
+  }
+  float* s_col = reinterpret_cast<float*>(S + L::W1);  // [2 wg][4 warps][ND][2]
+#pragma unroll
+  for (int i = 0; i < ND / 8; ++i) {
+    const int cl = 8 * i + col0, c = wg * ND + cl;
+    const float l0 = c < C ? __ldg(a.lns + c) : 0.f, l1 = c < C ? __ldg(a.lns + c + 1) : 0.f;
+    float cs[2][2] = {{0.f, 0.f}, {0.f, 0.f}};  // [column e][lns, lnb]
+#pragma unroll
+    for (int hv = 0; hv < 2; ++hv) {
+      const bool in = rin[hv] && c < C;
+      float zz[2];
+      z_at(hv, c, zz);
+      const float dz2a = in ? acc[4 * i + 2 * hv] : 0.f, dz2b = in ? acc[4 * i + 2 * hv + 1] : 0.f;
+      cs[0][0] += dz2a * zz[0];
+      cs[0][1] += dz2a;
+      cs[1][0] += dz2b * zz[1];
+      cs[1][1] += dz2b;
+      if (in)
+        *reinterpret_cast<float2*>(a.dy + size_t(p0 + row0 + 8 * hv) * C + c) =
+            make_float2(rsd[hv] * (dz2a * l0 - m1[hv] - zz[0] * m2[hv]),
+                        rsd[hv] * (dz2b * l1 - m1[hv] - zz[1] * m2[hv]));
+    }
+#pragma unroll
+    for (int o = 4; o < 32; o <<= 1)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+#pragma unroll
+        for (int q = 0; q < 2; ++q) cs[e][q] += __shfl_xor_sync(0xffffffffu, cs[e][q], o);
+    if (lane < 4)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+#pragma unroll
+        for (int q = 0; q < 2; ++q) s_col[((wg * 4 + wi) * ND + cl + e) * 2 + q] = cs[e][q];
+  }
+  __syncthreads();
+  for (int c = tid; c < C; c += RT) {
+    const int w = c / ND, cl = c % ND;
+    float t[2];
+#pragma unroll
+    for (int q = 0; q < 2; ++q)
+      t[q] = ((s_col[((w * 4 + 0) * ND + cl) * 2 + q] + s_col[((w * 4 + 1) * ND + cl) * 2 + q]) +
+              s_col[((w * 4 + 2) * ND + cl) * 2 + q]) + s_col[((w * 4 + 3) * ND + cl) * 2 + q];
+    a.dlnsp[size_t(tile) * C + c] = t[0];
+    a.dlnbp[size_t(tile) * C + c] = t[1];
+  }
+}
+
+// ---- weight pass: dw1^T = z2d^T dt(d_h) and W = dt(g)^T dt(a), [C, 4C] ------
+// over K = the pixels, split into slices; one CTA of two warpgroups per
+// 128 x 128 output tile and slice (warpgroup wg: rows wg*64.., two
+// m64n64k16 products per 16 pixels sharing the A tile), operands K-major
+// (the row pass wrote them transposed) through a WST-deep cp.async ring.
+// W's CTAs also sum dt(w2) W over their 128 columns per row: dgamma's
+// partials.
+struct WArgs {
+  const bf16* a[2];  // z2T, gT [C, Pp]
+  const bf16* b[2];  // dhT, aT [4C, Pp]
+  float* part;       // [2][S][C][4C]
+  const float* w2;   // raw w2 [C, 4C] (fp32)
+  float* dgp;        // dgamma's partials [S][4C / 128][C]
+  int C, Pp, kslice, S;
+};
+
+__device__ __forceinline__ void w_load(const WArgs& w, int q, unsigned char* st, int m0, int n0,
+                                       int k0) {
+  for (int i = threadIdx.x; i < 2 * WM * 8; i += WT) {
+    const int isb = i / (WM * 8), r = (i / 8) % WM, ch = i % 8;
+    const int row = (isb ? n0 : m0) + r;
+    const bool in = row < (isb ? 4 * w.C : w.C);
+    const bf16* src = (isb ? w.b[q] : w.a[q]) + size_t(row) * w.Pp + k0 + ch * 8;
+    cp_async16_zfill(st + isb * WTILE + sm90::swz(WM, r, ch * 8), in ? src : w.b[q], in);
+  }
+}
+
+__global__ void __launch_bounds__(WT) k2_weight_kernel(const WArgs w) {
+  extern __shared__ unsigned char k2h_smem[];
+  unsigned char* S = smem_base(k2h_smem);
+  const int q = blockIdx.z / w.S, sl = blockIdx.z % w.S;
+  const int n0 = blockIdx.x * WM, m0 = blockIdx.y * WM;
+  const int kbeg = sl * w.kslice, kend = min(w.Pp, kbeg + w.kslice);
+  const int nk = (kend - kbeg) / WK;
+  const int tid = threadIdx.x, wg = tid >> 7, wi = (tid >> 5) & 3, lane = tid & 31;
+  float acc[2][32];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[h][i] = 0.f;
+#pragma unroll
+  for (int t = 0; t < WST - 1; ++t) {
+    if (t < nk) w_load(w, q, S + t * 2 * WTILE, m0, n0, kbeg + t * WK);
+    cp_async_commit();
+  }
+  for (int t = 0; t < nk; ++t) {
+    cp_async_wait<WST - 2>();
+    sm90::fence_proxy();
+    __syncthreads();  // stage t landed for all; stage t - 1 is no longer read
+    if (t + WST - 1 < nk)
+      w_load(w, q, S + ((t + WST - 1) % WST) * 2 * WTILE, m0, n0, kbeg + (t + WST - 1) * WK);
+    cp_async_commit();
+    const unsigned char* st = S + (t % WST) * 2 * WTILE;
+    sm90::fence();
+#pragma unroll
+    for (int s = 0; s < WK / 16; ++s) {
+      const uint64_t da = sm90::desc(st + wg * 64 * 128 + s * 32);
+      sm90::Mma<64>::run(acc[0], da, sm90::desc(st + WTILE + s * 32));
+      sm90::Mma<64>::run(acc[1], da, sm90::desc(st + WTILE + 64 * 128 + s * 32));
+    }
+    sm90::commit();
+    sm90::wait<0>();
+  }
+  cp_async_wait<0>();
+  const int C4 = 4 * w.C;
+  float* out = w.part + (size_t(q) * w.S + sl) * w.C * C4;
+  float dg[2] = {0.f, 0.f};  // W's product: this tile's share of sum_j dt(w2) W per row
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int hv = 0; hv < 2; ++hv) {
+        const int m = m0 + wg * 64 + 16 * wi + (lane >> 2) + 8 * hv;
+        const int n = n0 + h * 64 + 8 * i + 2 * (lane & 3);
+        if (m < w.C && n < C4) {
+          const float v0 = acc[h][4 * i + 2 * hv], v1 = acc[h][4 * i + 2 * hv + 1];
+          *reinterpret_cast<float2*>(out + size_t(m) * C4 + n) = make_float2(v0, v1);
+          if (q == 1) {
+            const float2 wv = *reinterpret_cast<const float2*>(w.w2 + size_t(m) * C4 + n);
+            dg[hv] += bf(__float2bfloat16(wv.x)) * v0 + bf(__float2bfloat16(wv.y)) * v1;
+          }
+        }
+      }
+  if (q == 1) {
+#pragma unroll
+    for (int hv = 0; hv < 2; ++hv) {
+      dg[hv] += __shfl_xor_sync(0xffffffffu, dg[hv], 1);
+      dg[hv] += __shfl_xor_sync(0xffffffffu, dg[hv], 2);
+      const int m = m0 + wg * 64 + 16 * wi + (lane >> 2) + 8 * hv;
+      if ((lane & 3) == 0 && m < w.C)
+        w.dgp[(size_t(sl) * gridDim.x + blockIdx.x) * w.C + m] = dg[hv];
+    }
+  }
+}
+
+// ---- one reduction launch over a table of segments ------------------------
+enum SegKind { SEG_SUM = 0, SEG_DW1 = 1, SEG_DW2 = 2, SEG_DGAMMA = 3 };
+struct Seg {
+  const float* part;  // [S][n]
+  float* out;
+  long long n;
+  int S, kind;
+  int rows, first;  // thread rows per column (a power of two <= 32), first block
+};
+constexpr int MAXSEG = 10;
+constexpr int RT_RED = 1024;  // reduction threads: 32 warps
+struct RedArgs {
+  Seg seg[MAXSEG];
+  int nseg, C;
+  const float *gamma, *b2, *sgp;  // sgp: the sum-g partials [tiles, C]
+  int tiles;
+};
+
+// thread rows per column for S slices: enough for about 16 slices a row
+inline int seg_rows(int S) {
+  int r = 1;
+  while (r < 32 && r * 16 < S) r *= 2;
+  return r;
+}
+
+// A block's 32 warps cover 32 / R groups of 32 columns with R warps (rows)
+// each. Sum over s of part[s * n + col] in a fixed order: row r takes s = r,
+// r + R, ... into four running sums (four loads in flight), added in
+// order; then row 0 adds the R row sums in order.
+__device__ __forceinline__ float column_sum(const float* part, int S, long long n, long long col,
+                                            int R, float (&red)[32][32]) {
+  const int tx = threadIdx.x & 31, warp = threadIdx.x >> 5, row = warp % R;
+  float t0 = 0.f, t1 = 0.f, t2 = 0.f, t3 = 0.f;
+  if (col < n) {
+    int s = row;
+    for (; s + 3 * R < S; s += 4 * R) {
+      t0 += part[s * n + col];
+      t1 += part[(s + R) * n + col];
+      t2 += part[(s + 2 * R) * n + col];
+      t3 += part[(s + 3 * R) * n + col];
+    }
+    for (; s < S; s += R) t0 += part[s * n + col];
+  }
+  __syncthreads();  // red is free
+  red[warp][tx] = (t0 + t1) + (t2 + t3);
+  __syncthreads();
+  float u = 0.f;
+  if (row == 0)
+    for (int w = 0; w < R; ++w) u += red[warp + w][tx];
+  return u;
+}
+
+// every block sums columns of one segment (no atomics): the parameter
+// vectors over the row pass's tiles, the taps over the spatial slices, the
+// weight gradients over the weight pass's K slices (dw1 written transposed
+// to the port's [4C, C], dw2 = gamma * W), and dgamma = its weight-pass
+// partials + b2 * sum g
+__global__ void __launch_bounds__(RT_RED) k2_reduce_kernel(const RedArgs r) {
+  __shared__ float red[32][32];
+  int si = 0;
+  while (si + 1 < r.nseg && int(blockIdx.x) >= r.seg[si + 1].first) ++si;
+  const Seg& sg = r.seg[si];
+  const int R = sg.rows, warp = threadIdx.x >> 5;
+  const long long col =
+      ((long long)(blockIdx.x - sg.first) * (32 / R) + warp / R) * 32 + (threadIdx.x & 31);
+  float u = column_sum(sg.part, sg.S, sg.n, col, R, red);
+  if (sg.kind == SEG_DGAMMA) {  // rows = 32 for both sums
+    const float sgc = column_sum(r.sgp, r.tiles, sg.n, col, R, red);
+    u += r.b2[col < sg.n ? col : 0] * sgc;
+  }
+  if (warp % R != 0 || col >= sg.n) return;
+  if (sg.kind == SEG_DW1) {
+    const int C4 = 4 * r.C, c = int(col / C4), j = int(col % C4);
+    sg.out[size_t(j) * r.C + c] = u;  // the port's [4C, C]
+  } else if (sg.kind == SEG_DW2) {
+    sg.out[col] = r.gamma[col / (4 * r.C)] * u;  // dw2 = gamma * W, [C, 4C]
+  } else {
+    sg.out[col] = u;
+  }
+}
+
+// ---- plan and launches -----------------------------------------------------
+struct Plan {
+  int P, C, tiles, Pp, S, kslice, nsl, nch;
+  size_t off[15];
+  size_t total;
+};
+
+inline Plan make_plan(int B, int H, int W, int C) {
+  Plan pl{};
+  pl.P = B * H * W;
+  pl.C = C;
+  pl.tiles = cdiv(pl.P, TM);
+  pl.Pp = pl.tiles * TM;
+  // split-K: about one wave of two 96 KB CTAs per SM, >= 16 stages a slice
+  const int wtiles = cdiv(4 * C, WM) * cdiv(C, WM) * 2;
+  int s = max(1, min(cdiv(2 * 132, wtiles), pl.Pp / (16 * WK)));
+  pl.kslice = cdiv(cdiv(pl.Pp, s), WK) * WK;
+  pl.S = cdiv(pl.Pp, pl.kslice);
+  pl.nch = cdiv(C, CC);
+  const int ntiles = B * cdiv(H, TH) * cdiv(W, TW);
+  pl.nsl = max(1, min(ntiles, cdiv(4 * 132, pl.nch)));
+  const size_t P = pl.P, Pp = pl.Pp, c = C, f = 4, t = 2, T = pl.tiles;
+  const size_t sizes[15] = {
+      4 * c * Pp * t,  // 0 dt(d_h)^T
+      4 * c * Pp * t,  // 1 dt(a)^T
+      c * Pp * t,      // 2 dt(z * lns + lnb)^T
+      c * Pp * t,      // 3 dt(g)^T
+      P * c * f,       // 4 d_y
+      T * 4 * c * f,   // 5 db1 partials
+      T * c * f,       // 6 db2 partials
+      T * c * f,       // 7 sum-g partials
+      T * c * f,       // 8 dln_scale partials
+      T * c * f,       // 9 dln_bias partials
+      size_t(pl.nsl) * 49 * c * f,          // 10 tap partials
+      size_t(pl.nsl) * c * f,               // 11 dw-bias partials
+      2 * size_t(pl.S) * c * 4 * c * f,     // 12 weight-gradient partials [2][S][C][4C]
+      size_t(pl.S) * cdiv(4 * C, WM) * c * f,  // 13 dgamma partials [S][4C / 128][C]
+      0};
+  size_t o = 0;
+  for (int i = 0; i < 15; ++i) {
+    pl.off[i] = o;
+    o += align128(sizes[i]);
+  }
+  pl.total = o;
+  return pl;
+}
+
+// the row pass's shared memory per CTA and its CTAs per SM at width C
+template <int CP, int NC>
+int row_occupancy(int* smem, int* ctas) {
+  const int bytes = int(RowSmem<CP, NC>::BYTES) + 1024;
+  auto kern = k2_row_kernel<CP, NC>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return int(e);
+  *smem = bytes;
+  return int(cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas, kern, RT, bytes));
+}
+
+inline int row_config(int C, int* smem, int* ctas, int* nc) {
+  *nc = C <= 192 ? 64 : 32;
+  if (C <= 48) return row_occupancy<48, 64>(smem, ctas);
+  if (C <= 96) return row_occupancy<96, 64>(smem, ctas);
+  if (C <= 192) return row_occupancy<192, 64>(smem, ctas);
+  return row_occupancy<384, 32>(smem, ctas);
+}
+
+template <int CP, int NC>
+int launch_row(const RowArgs& ra, int tiles, cudaStream_t s) {
+  const int bytes = int(RowSmem<CP, NC>::BYTES) + 1024;
+  auto kern = k2_row_kernel<CP, NC>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return int(e);
+  kern<<<tiles, RT, bytes, s>>>(ra);
+  return int(cudaGetLastError());
+}
+
+// p (bf16 pipeline): x, y, g, taps [49][C], w1ft = dt(w1')^T [4C][C], w2f =
+// dt(w2') [4C][C], w1t = dt(w1)^T [C][4C], w2 (fp32, raw) [C][4C], b1f [4C],
+// b2, gamma, lns, lnb [C]; then the outputs dx, ddw [49][C], ddwb, dlns,
+// dlnb, dw1 [4C][C], db1, dw2 [C][4C], db2, dgam.
+int backward(const void* const* p, void* ws, int B, int H, int W, int C, float eps,
+             cudaStream_t s) {
+  const Plan pl = make_plan(B, H, W, C);
+  auto in = [&](int i) { return static_cast<const bf16*>(p[i]); };
+  auto inf = [&](int i) { return static_cast<const float*>(p[i]); };
+  auto outf = [&](int i) { return static_cast<float*>(const_cast<void*>(p[i])); };
+  unsigned char* w = static_cast<unsigned char*>(ws);
+  auto wb = [&](int i) { return reinterpret_cast<bf16*>(w + pl.off[i]); };
+  auto wf = [&](int i) { return reinterpret_cast<float*>(w + pl.off[i]); };
+  int rc;
+
+  RowArgs ra{};
+  ra.y = in(1); ra.g = in(2); ra.w1ft = in(4); ra.w2f = in(5); ra.w1t = in(6);
+  ra.b1f = inf(8); ra.gamma = inf(10); ra.lns = inf(11); ra.lnb = inf(12);
+  ra.dhT = wb(0); ra.aT = wb(1); ra.z2T = wb(2); ra.gT = wb(3); ra.dy = wf(4);
+  ra.db1p = wf(5); ra.db2p = wf(6); ra.sgp = wf(7); ra.dlnsp = wf(8); ra.dlnbp = wf(9);
+  ra.P = pl.P; ra.Pp = pl.Pp; ra.C = C; ra.eps = eps;
+  if (C <= 48) rc = launch_row<48, 64>(ra, pl.tiles, s);
+  else if (C <= 96) rc = launch_row<96, 64>(ra, pl.tiles, s);
+  else if (C <= 192) rc = launch_row<192, 64>(ra, pl.tiles, s);
+  else rc = launch_row<384, 32>(ra, pl.tiles, s);
+  if (rc) return rc;
+
+  {
+    WArgs wa{};
+    wa.a[0] = wb(2); wa.b[0] = wb(0);  // dw1^T = z2d^T dt(d_h)
+    wa.a[1] = wb(3); wa.b[1] = wb(1);  // W = dt(g)^T dt(a)
+    wa.part = wf(12); wa.w2 = inf(7); wa.dgp = wf(13);
+    wa.C = C; wa.Pp = pl.Pp; wa.kslice = pl.kslice; wa.S = pl.S;
+    const int bytes = int(WST * 2 * WTILE) + 1024;
+    cudaError_t e =
+        cudaFuncSetAttribute(k2_weight_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return int(e);
+    k2_weight_kernel<<<dim3(cdiv(4 * C, WM), cdiv(C, WM), 2 * pl.S), WT, bytes, s>>>(wa);
+    if ((rc = int(cudaGetLastError()))) return rc;
+  }
+  {
+    auto kern = cnb_bwd_spatial_kernel<bf16>;
+    const int bytes = int(sizeof(SpatialSmem));
+    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return int(e);
+    bf16* dx = static_cast<bf16*>(const_cast<void*>(p[13]));
+    kern<<<dim3(pl.nsl, pl.nch), NT, bytes, s>>>(wf(4), in(0), in(2), inf(3), dx, wf(10), wf(11), B,
+                                                 H, W, C);
+    if ((rc = int(cudaGetLastError()))) return rc;
+  }
+  RedArgs rr{};
+  const long long c = C, C4 = 4LL * C;
+  const Seg segs[] = {
+      {wf(10), outf(14), 49 * c, pl.nsl, SEG_SUM, 0, 0},     // taps
+      {wf(11), outf(15), c, pl.nsl, SEG_SUM, 0, 0},          // dw bias
+      {wf(8), outf(16), c, pl.tiles, SEG_SUM, 0, 0},         // ln scale
+      {wf(9), outf(17), c, pl.tiles, SEG_SUM, 0, 0},         // ln bias
+      {wf(12), outf(18), c * C4, pl.S, SEG_DW1, 0, 0},        // w1
+      {wf(5), outf(19), C4, pl.tiles, SEG_SUM, 0, 0},        // b1
+      {wf(12) + size_t(pl.S) * c * C4, outf(20), c * C4, pl.S, SEG_DW2, 0, 0},  // w2
+      {wf(6), outf(21), c, pl.tiles, SEG_SUM, 0, 0},         // b2
+      {wf(13), outf(22), c, pl.S * cdiv(C4, WM), SEG_DGAMMA, 0, 0},  // gamma
+  };
+  int blocks = 0;
+  rr.nseg = int(sizeof(segs) / sizeof(segs[0]));
+  for (int i = 0; i < rr.nseg; ++i) {
+    Seg& sg = rr.seg[i];
+    sg = segs[i];
+    sg.rows = sg.kind == SEG_DGAMMA ? 32 : seg_rows(sg.S);
+    sg.first = blocks;
+    blocks += int((sg.n + 32 * (32 / sg.rows) - 1) / (32 * (32 / sg.rows)));
+  }
+  rr.C = C; rr.gamma = inf(10); rr.b2 = inf(9); rr.sgp = wf(7); rr.tiles = pl.tiles;
+  k2_reduce_kernel<<<blocks, RT_RED, 0, s>>>(rr);
+  return int(cudaGetLastError());
+}
+
+}  // namespace k2h
+
 inline bool bad_shape(int B, int H, int W, int C) {
   return B <= 0 || H <= 0 || W <= 0 || C <= 0 || C % 16 != 0 || C > MAXC;
 }
 
+// K2's bf16 calls up to C = 384 run the Hopper pipeline (namespace k2h); fp32
+// and the wider bf16 calls, the first design
+inline bool hopper_route(int C, int is_bf16) { return is_bf16 && C <= k2h::HMAXC; }
+
 inline long long workspace(int B, int H, int W, int C, int is_bf16, bool v1) {
   if (bad_shape(B, H, W, C)) return -1;
+  if (!v1 && hopper_route(C, is_bf16)) return (long long)k2h::make_plan(B, H, W, C).total;
   return (long long)(is_bf16 ? make_plan<__nv_bfloat16>(B, H, W, C, v1).total
                              : make_plan<float>(B, H, W, C, v1).total);
 }
@@ -756,16 +1528,30 @@ long long cnb_backward_workspace(int B, int H, int W, int C, int is_bf16) {
   return workspace(B, H, W, C, is_bf16, false);
 }
 
-// ptrs: the 24 pointers listed above `backward` (inputs contiguous NHWC or
-// as listed, compute dtype bf16 if is_bf16 else fp32, parameter vectors and
-// every gradient but dx fp32); ws: cnb_backward_workspace bytes, 128-byte
-// aligned. Launches on `stream`; returns the first CUDA error, or 0.
+// ptrs: in bf16 up to C = 384 the 23 pointers listed above k2h::backward,
+// otherwise the 24 listed above the first design's `backward` (inputs
+// contiguous NHWC or as listed, compute dtype bf16 if is_bf16 else fp32,
+// parameter vectors and every gradient but dx fp32); ws:
+// cnb_backward_workspace bytes, 128-byte aligned. Launches on `stream`;
+// returns the first CUDA error, or 0.
 int cnb_backward(const void* const* ptrs, void* ws, int B, int H, int W, int C, float eps,
                  int is_bf16, void* stream) {
   if (bad_shape(B, H, W, C)) return int(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
+  if (hopper_route(C, is_bf16)) return k2h::backward(ptrs, ws, B, H, W, C, eps, s);
   if (is_bf16) return backward<__nv_bfloat16, false>(ptrs, ws, B, H, W, C, eps, s);
   return backward<float, false>(ptrs, ws, B, H, W, C, eps, s);
+}
+
+// 1 if K2's calls at width C and this dtype run the Hopper pipeline (and take
+// its pointer list), 0 if they run the first design.
+int cnb_backward_route(int C, int is_bf16) { return int(hopper_route(C, is_bf16)); }
+
+// K2's Hopper row pass at width C (C <= 384): shared memory per CTA, CTAs
+// per SM and the hidden chunk NC; returns a CUDA error, or 0.
+int cnb_backward_row_config(int C, int* smem_bytes, int* ctas_per_sm, int* chunk) {
+  if (C <= 0 || C % 16 != 0 || C > k2h::HMAXC) return int(cudaErrorInvalidValue);
+  return k2h::row_config(C, smem_bytes, ctas_per_sm, chunk);
 }
 
 // K4: bytes of device workspace cnb_backward_v1 needs for this shape.

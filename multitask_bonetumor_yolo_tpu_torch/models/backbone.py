@@ -60,14 +60,20 @@ class LayerNorm(nn.Module):
         return y.to(x.dtype).permute(0, 3, 1, 2)
 
 
-def use_kernel(pallas: str, x: torch.Tensor) -> bool:
-    """The block dispatch of the JAX ``_use_pallas``: "on" -> the CUDA kernel
-    (its wrapper returns the plain twin for a CPU tensor); "auto" -> the
-    kernel on a CUDA tensor, the eager reference on a CPU tensor; "off" ->
-    the eager reference."""
+def use_kernel(pallas: str, x: torch.Tensor, train: bool = False) -> bool:
+    """The block dispatch of the JAX ``_use_pallas``, with a per-width rule for
+    inference: "on" -> the CUDA kernel (its wrapper returns the plain twin
+    for a CPU tensor); "off" -> the eager reference; "auto" -> the eager
+    reference on a CPU tensor, and on a CUDA tensor (NHWC, C last) the
+    kernel, except in the inference forward (``train=False``) at C = 768,
+    where K1 loses to the eager block: 1.447 against 0.611 ms per block at
+    batch 16, 20x20x768 (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md). Training
+    keeps the kernel wherever ``bwd_for_dim`` picks the fused backward."""
     if pallas not in ("auto", "on", "off"):
         raise ValueError(f"unknown pallas setting {pallas!r}")
-    return pallas == "on" or (pallas == "auto" and x.device.type == "cuda")
+    if pallas != "auto":
+        return pallas == "on"
+    return x.device.type == "cuda" and (train or x.shape[-1] <= 384)
 
 
 def bwd_for_dim(dim: int, policy: str = "auto") -> str:
@@ -111,7 +117,7 @@ class ConvNeXtBlock(nn.Module):
         NHWC view, which is contiguous for a channels_last tensor. The
         kernel path, unless this stage trains as eager blocks."""
         x = x.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
-        if use_kernel(self.pallas, x) and not (train and self.bwd == "ref"):
+        if use_kernel(self.pallas, x, train) and not (train and self.bwd == "ref"):
             out = convnext_block(x, *self.params(), bwd=self.bwd)
         else:
             out = convnext_block_ref(x, *self.params())

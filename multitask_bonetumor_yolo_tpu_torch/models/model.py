@@ -42,8 +42,10 @@ class ModelConfig:
     sidecars are shared. What the port does with the TPU-specific fields:
 
     * ``pallas``: "on" -> the hand-written CUDA ConvNeXt-block kernel (its
-      plain twin on a CPU tensor); "auto" -> the kernel on a CUDA tensor,
-      the eager erf reference on a CPU tensor; "off" -> the eager reference.
+      plain twin on a CPU tensor); "auto" -> the kernel on a CUDA tensor
+      (in the inference forward only for C <= 384: at C = 768 the eager
+      block is faster, ``backbone.use_kernel``), the eager erf reference on
+      a CPU tensor; "off" -> the eager reference.
     * ``ln_zfree``: read and ignored. The CUDA kernel always normalises in
       shared memory before fc1 (no extra device-memory pass to save there).
     * ``fuse_towers``: read and ignored. The heads always run the towers'

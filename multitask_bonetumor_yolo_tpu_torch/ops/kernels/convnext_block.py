@@ -178,16 +178,25 @@ def dt_copy(t, dt):
 def kernel_operands(params, dt, backward: bool = False) -> dict:
     """The block's parameters as the kernels take them, folded once:
     K1's ``taps``, ``dw_bias``, ``w1f`` = dt(w1') [C,4C], ``b1f``, ``w2f`` =
-    dt(w2') [4C,C], ``b2f``; with ``backward`` also K2's ``w2f_t`` [C,4C],
-    ``w1f_t`` [4C,C] and the raw-space ``w1`` [4C,C] and ``w2_t`` [4C,C] in
-    ``dt``. The autograd Function folds once per block and hands the same
-    operands to K1's saving launch and to K2."""
+    dt(w2') [4C,C], ``b2f``; with ``backward`` also K2's: ``w1f_t`` [4C,C]
+    and, for its Hopper pipeline (``convnext_block_bwd.hopper_route``, the
+    library's rule), the raw-space
+    ``w1_t`` = dt(w1)^T [C,4C], else ``w2f_t`` [C,4C] and the raw-space
+    ``w1`` [4C,C] and ``w2_t`` [4C,C], all in ``dt``. The autograd Function
+    folds once per block and hands the same operands to K1's saving launch
+    and to K2."""
     dw, dwb, w1f, b1f, w2f, b2f = fold_block_params(*params)
     ops = dict(taps=dw, dw_bias=dwb, w1f=w1f.to(dt), b1f=b1f, w2f=w2f.to(dt), b2f=b2f)
     if backward:
+        from .convnext_block_bwd import hopper_route  # imports this module
+
         w1, w2 = params[4], params[6]
-        ops.update(w2f_t=dt_copy(ops["w2f"].t(), dt), w1f_t=dt_copy(ops["w1f"].t(), dt),
-                   w1=w1.to(dt).contiguous(), w2_t=dt_copy(w2.t(), dt))
+        ops.update(w1f_t=dt_copy(ops["w1f"].t(), dt))
+        if hopper_route(dt, w1.shape[1]):
+            ops.update(w1_t=dt_copy(w1.t(), dt))
+        else:
+            ops.update(w2f_t=dt_copy(ops["w2f"].t(), dt), w1=w1.to(dt).contiguous(),
+                       w2_t=dt_copy(w2.t(), dt))
     return ops
 
 

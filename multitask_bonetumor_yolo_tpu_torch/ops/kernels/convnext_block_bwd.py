@@ -11,13 +11,20 @@ forward's argument order: ``dx`` in the compute dtype, then fp32 gradients of
 the raw parameters in the port's layouts (``dw_kernel [C,1,7,7]``,
 ``dw_bias``, ``ln_scale``, ``ln_bias``, ``w1 [4C,C]``, ``b1``, ``w2 [C,4C]``,
 ``b2``, ``gamma``). The LN moments are recomputed from ``y``, the hidden
-layer from the folded ``w1'`` with the tanh-GELU derivative; ``d_z`` goes
-through the folded ``w1'`` and the raw-space ``d_z2`` through the raw ``w1``.
+layer from the folded ``w1'`` with the tanh-GELU derivative. Where the TPU
+kernel runs seven products, K2 and its plain version take the five that the
+function needs, in derived forms (the same values up to rounding):
+``d_z = ln_scale * d_z2`` from the raw-space ``d_z2 = dt(d_h) dt(w1)`` (the
+TPU kernel runs a second product through the folded ``w1'``); ``W =
+dt(g)^T dt(a)`` gives ``dw2 = gamma * W`` and ``dgamma = sum_j dt(w2) * W +
+b2 * sum g`` (the TPU kernel forms ``o = dt(a) dt(w2)^T`` for dgamma and
+``dt(g * gamma)^T dt(a)`` for dw2). They save two of the seven products.
 
   * :func:`convnext_block_bwd` — on a CUDA tensor it launches the kernels of
     ``csrc/convnext_block_bwd.cu`` (whose header says what bounds them and
-    how they are laid out) or raises; on a CPU tensor it returns the plain
-    version.
+    how they are laid out) or raises: in bf16 up to C = 384 its Hopper
+    pipeline (four launches, wgmma products), otherwise its first design; on
+    a CPU tensor it returns the plain version.
   * :func:`convnext_block_bwd_plain` — the same math and the same casts to
     the compute dtype in plain PyTorch.
 
@@ -52,7 +59,9 @@ import torch
 import torch.nn.functional as F
 
 from .build import load_library
-from .convnext_block import check_block_args, dt_copy, fold_block_params, kernel_operands
+from .convnext_block import (
+    check_block_args, dt_copy, fold_block_params, kernel_operands,
+)
 from .dwconv import dwconv7
 
 _GELU_C = 0.7978845608028654
@@ -78,8 +87,9 @@ def _dx_corr(d_y, dw_kernel):
 def convnext_block_bwd_plain(
     x, y, g, dw_kernel, dw_bias, ln_scale, ln_bias, w1, b1, w2, b2, gamma, eps: float = 1e-6
 ):
-    """K2's math in plain PyTorch; operands of every product are cast to the
-    compute dtype where the kernel casts them, sums are fp32."""
+    """K2's math in plain PyTorch, with the derived forms of ``d_z``, ``dw2``
+    and ``dgamma`` (module docstring); operands of every product are cast to
+    the compute dtype where the kernel casts them, sums are fp32."""
     dt = x.dtype
     _, _, w1f, b1f, w2f, _ = fold_block_params(
         dw_kernel, dw_bias, ln_scale, ln_bias, w1, b1, w2, b2, gamma
@@ -104,14 +114,13 @@ def convnext_block_bwd_plain(
     du = _GELU_C * (1.0 + 3.0 * 0.044715 * h1 * h1)
     d_h = (op(gf) @ op(w2f).t()) * (0.5 * (1.0 + th) + h1 * 0.5 * (1.0 - th * th) * du)
     dhd = op(d_h)
-    d_z = dhd @ op(w1f).t()
     d_z2 = dhd @ op(w1)
+    d_z = ln_scale.float() * d_z2
     m1 = d_z.mean(-1, keepdim=True)
     m2 = (d_z * z).mean(-1, keepdim=True)
     d_y = r * (d_z - m1 - z * m2)
     a = op(h1 * 0.5 * (1.0 + th))
-    o = a @ op(w2).t() + b2.float()
-    do = op(gf * gamma.float())
+    wg = flat(op(gf)).t() @ flat(a)  # W = dt(g)^T dt(a) [C, 4C]
     z2 = op(z * ln_scale.float() + ln_bias.float())
 
     return (
@@ -122,9 +131,9 @@ def convnext_block_bwd_plain(
         total(d_z2),
         flat(dhd).t() @ flat(z2),
         total(d_h),
-        flat(do).t() @ flat(a),
-        total(do),
-        total(gf * o),
+        gamma.float()[:, None] * wg,
+        total(op(gf * gamma.float())),
+        (op(w2) * wg).sum(1) + b2.float() * total(gf),
     )
 
 
@@ -136,11 +145,35 @@ def _library() -> ctypes.CDLL:
     lib.cnb_backward_workspace.restype = ctypes.c_longlong
     lib.cnb_backward.argtypes = [vp, vp] + [ci] * 4 + [ctypes.c_float, ci, vp]
     lib.cnb_backward.restype = ci
+    ip = ctypes.POINTER(ci)
+    lib.cnb_backward_row_config.argtypes = [ci, ip, ip, ip]
+    lib.cnb_backward_row_config.restype = ci
+    lib.cnb_backward_route.argtypes = [ci, ci]
+    lib.cnb_backward_route.restype = ci
     lib.cnb_backward_v1_workspace.argtypes = [ci] * 5
     lib.cnb_backward_v1_workspace.restype = ctypes.c_longlong
     lib.cnb_backward_v1.argtypes = [vp, vp] + [ci] * 4 + [ctypes.c_float, ci, vp]
     lib.cnb_backward_v1.restype = ci
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def hopper_route(dt, c: int) -> bool:
+    """Whether K2's CUDA calls in compute dtype ``dt`` at width ``c`` run its
+    Hopper pipeline (bf16 up to C = 384) rather than its first design: the
+    library's own rule (``cnb_backward_route``), which also picks the
+    pointer list that :func:`convnext_block_bwd` must pass."""
+    return bool(_library().cnb_backward_route(c, int(dt == torch.bfloat16)))
+
+
+def row_pass_config(c: int) -> dict:
+    """K2's Hopper row pass at width ``c`` (bf16, ``c`` <= 384) on the current
+    card: its shared memory per CTA, CTAs per SM and hidden chunk."""
+    vals = [ctypes.c_int() for _ in range(3)]
+    rc = _library().cnb_backward_row_config(c, *[ctypes.byref(v) for v in vals])
+    if rc != 0:
+        raise RuntimeError(f"cnb_backward_row_config({c}) failed: CUDA error {rc}")
+    return dict(zip(("smem_bytes", "ctas_per_sm", "hidden_chunk"), (v.value for v in vals)))
 
 
 def convnext_block_bwd(
@@ -169,8 +202,13 @@ def convnext_block_bwd(
     def vec(t):
         return t.float().contiguous()
 
-    ins = (x, y, g, *(ops[k] for k in ("taps", "w1f", "w2f_t", "w1f_t", "w1", "w2_t", "b1f")),
-           vec(b2), vec(gamma), vec(ln_scale), vec(ln_bias))
+    # the pointer slots of cnb_backward's two pipelines (csrc/convnext_block_bwd.cu)
+    if hopper_route(dt, c):
+        ins = (x, y, g, *(ops[k] for k in ("taps", "w1f_t", "w2f", "w1_t")), vec(w2),
+               ops["b1f"], vec(b2), vec(gamma), vec(ln_scale), vec(ln_bias))
+    else:
+        ins = (x, y, g, *(ops[k] for k in ("taps", "w1f", "w2f_t", "w1f_t", "w1", "w2_t", "b1f")),
+               vec(b2), vec(gamma), vec(ln_scale), vec(ln_bias))
     f32 = dict(dtype=torch.float32, device=x.device)
     outs = (torch.empty_like(x), torch.empty(49, c, **f32), torch.empty(c, **f32),
             torch.empty(c, **f32), torch.empty(c, **f32), torch.empty(4 * c, c, **f32),

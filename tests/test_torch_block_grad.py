@@ -88,6 +88,45 @@ def test_bwd_plain_matches_jax_fused_bwd_v2(saved):
         assert err <= 1e-4 * np.abs(b).max() + 1e-6, (i, err, np.abs(b).max())
 
 
+def test_bwd_plain_matches_jax_fused_bwd_v2_bf16(saved):
+    """The same comparison with x, y and g in bf16 (the train step's dtype):
+    K2's plain version takes derived forms where the TPU kernel runs seven
+    products (d_z = ln_scale * d_z2; dw2 and dgamma from W = dt(g)^T dt(a)),
+    which round differently in bf16. dx within 3e-2 (atol/rtol); each
+    parameter gradient within 3e-2 of its own scale."""
+    from multitask_bonetumor_yolo_tpu.ops.pallas.convnext_block import (
+        pad_for_blocks, unpad_from_blocks,
+    )
+    from multitask_bonetumor_yolo_tpu.ops.pallas.convnext_block_bwd import fused_block_bwd_v2
+
+    from multitask_bonetumor_yolo_tpu_torch.ops.kernels import convnext_block_bwd as k2
+
+    args, _, y = saved
+    g = np.random.RandomState(11).randn(1, 8, 8, 16).astype(np.float32)
+    x, *params = map(jnp.asarray, args)
+    xb, yb, gb = (t.astype(jnp.bfloat16) for t in (x, jnp.asarray(y), jnp.asarray(g)))
+    want = fused_block_bwd_v2(pad_for_blocks(xb), pad_for_blocks(yb), pad_for_blocks(gb),
+                              *params, w=8, c=16, interpret=True)
+
+    def port_bf16(t):
+        return torch.from_numpy(np.array(t.astype(jnp.float32))).to(torch.bfloat16)
+
+    _, *pt = to_port(args)
+    got = k2.convnext_block_bwd_plain(port_bf16(xb), port_bf16(yb), port_bf16(gb), *pt)
+    assert got[0].dtype == torch.bfloat16
+    np.testing.assert_allclose(got[0].float().numpy(),
+                               np.asarray(unpad_from_blocks(want[0], 8, 16).astype(jnp.float32)),
+                               atol=3e-2, rtol=3e-2)
+    jax_in_port = [np.asarray(t) for t in want[1:]]
+    jax_in_port[0] = jax_in_port[0].transpose(3, 2, 0, 1)
+    jax_in_port[4] = jax_in_port[4].T
+    jax_in_port[6] = jax_in_port[6].T
+    for i, (a, b) in enumerate(zip(got[1:], jax_in_port)):
+        b = b.reshape(a.shape)
+        err = np.abs(a.numpy() - b).max()
+        assert err <= 3e-2 * np.abs(b).max(), (i, err, np.abs(b).max())
+
+
 def test_autograd_function_on_cpu_matches_jax_grad():
     """``convnext_block`` recorded by autograd on the CPU (plain saving form
     forward, plain K2 backward) against ``jax.grad`` through ``convnext_block

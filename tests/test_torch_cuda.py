@@ -108,6 +108,11 @@ def check_bwd(got, want, tol):
     ((3, 7, 5, 48), torch.bfloat16, 3e-2),
     ((2, 20, 20, 384), torch.bfloat16, 3e-2),
     ((1, 13, 21, 96), torch.float32, 1e-2),
+    ((1, 13, 11, 48), torch.bfloat16, 3e-2),  # P = 143: a partial 64-pixel tile
+    ((1, 13, 11, 192), torch.bfloat16, 3e-2),
+    ((1, 13, 11, 384), torch.bfloat16, 3e-2),
+    ((2, 8, 8, 64), torch.bfloat16, 3e-2),  # padded to the C = 96 instantiation
+    ((2, 10, 10, 768), torch.bfloat16, 3e-2),  # wider than the Hopper pipeline holds
 ])
 def test_bwd_kernel_matches_plain(dev, shape, dtype, tol):
     """K2 against its plain version on the same x, saved y and cotangent.
@@ -127,6 +132,43 @@ def test_bwd_kernel_matches_plain(dev, shape, dtype, tol):
                                   ops=cnb.kernel_operands(params, dtype, backward=True))
     for a, b in zip(got, again):  # fixed-order reductions: bit for bit
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("c", [48, 96, 192, 384])
+def test_bwd_hopper_pipeline_launches(dev, c):
+    """A bf16 call up to C = 384 runs K2's Hopper pipeline: at most five
+    kernel launches per call, counted by the profiler, none of them a
+    library kernel, and two calls equal bit for bit. The library's route
+    rule, which picks the operands and pointer list, says the same."""
+    assert k2.hopper_route(torch.bfloat16, c)
+    assert not k2.hopper_route(torch.float32, c) and not k2.hopper_route(torch.bfloat16, 768)
+    x, *params = block_args(14, 1, 13, 11, c, torch.bfloat16, dev)
+    _, y = cnb.convnext_block_plain_saving(x, *params)
+    g = torch.randn_like(x)
+    ops = cnb.kernel_operands(params, x.dtype, backward=True)
+    first = k2.convnext_block_bwd(x, y, g, *params, ops=ops)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        second = k2.convnext_block_bwd(x, y, g, *params, ops=ops)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert 0 < len(names) <= 5 and all("k2_" in n or "cnb_bwd_" in n for n in names), names
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_png_round_trip_on_the_card_machine(dev, tmp_path):
+    """The port's PNG codec where cv2 and PIL are missing: write, read back,
+    letterbox, equal."""
+    from multitask_bonetumor_yolo_tpu_torch.cli.infer import load_and_letterbox
+    from multitask_bonetumor_yolo_tpu_torch.data.imageio import read_png, write_png
+
+    img = np.random.RandomState(3).randint(0, 256, (37, 53, 3)).astype(np.uint8)
+    write_png(tmp_path / "a.png", img)
+    assert np.array_equal(read_png(tmp_path / "a.png"), img)
+    canvas = load_and_letterbox(str(tmp_path / "a.png"), 53)
+    assert np.array_equal(canvas[:37], img) and (canvas[37:] == 114).all()
 
 
 def test_autograd_runs_the_kernels(dev):

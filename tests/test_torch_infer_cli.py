@@ -1,0 +1,98 @@
+"""The port's inference CLI on the CPU: the bridge's inverse walk
+(``torch_to_flax``), ``cli.infer.main`` on PNG files against ``infer_batch``,
+and the block dispatch of ``models/backbone.py::use_kernel``."""
+
+import json
+import types
+
+import numpy as np
+import pytest
+import torch
+
+from multitask_bonetumor_yolo_tpu_torch.bridge import flax_to_torch, save_npz, torch_to_flax
+from multitask_bonetumor_yolo_tpu_torch.cli import infer
+from multitask_bonetumor_yolo_tpu_torch.data.imageio import write_png
+from multitask_bonetumor_yolo_tpu_torch.models import ModelConfig, build_model
+from multitask_bonetumor_yolo_tpu_torch.models.backbone import use_kernel
+from test_torch_model import one_torch_thread  # noqa: F401 (autouse)
+
+SIZE = 64
+
+
+@torch.no_grad()
+def random_model(seed=0):
+    model = build_model(ModelConfig(img_size=SIZE, dtype="float32"), seed=seed, device="cpu")
+    gen = torch.Generator().manual_seed(seed)
+    for t in list(model.parameters()) + [b for n, b in model.named_buffers()
+                                         if n.endswith("running_mean")]:
+        t.add_(0.05 * torch.randn(t.shape, generator=gen))
+    return model
+
+
+def test_torch_to_flax_inverts_flax_to_torch():
+    """``flax_to_torch(*torch_to_flax(sd))`` equals the v1 model's
+    ``state_dict`` key for key and bit for bit, and the trees hold no
+    torch-only leaf name."""
+    sd = random_model().state_dict()
+    params, stats = torch_to_flax(sd)
+    back = flax_to_torch(params, stats)
+    assert set(back) == set(sd)
+    for k, v in sd.items():
+        assert torch.equal(back[k], v.to(back[k].dtype)), k
+    assert "stage0_block0" in params["backbone"]["trunk"]
+    assert "running_mean" not in repr(stats) and "num_batches_tracked" not in repr(stats)
+
+
+def test_main_on_png_matches_infer_batch(tmp_path, capsys):
+    """``main`` with ``--device cpu`` on two PNGs (one not square), with a
+    checkpoint written by ``save_npz`` from ``torch_to_flax``: each record's
+    boxes, scores, labels and class probabilities equal those of
+    ``infer_batch`` on the same letterboxed canvas."""
+    model = random_model(1).eval()
+    ckpt = tmp_path / "w.npz"
+    save_npz(str(ckpt), *torch_to_flax(model.state_dict()))
+    rng = np.random.RandomState(5)
+    paths = []
+    for name, (h, w) in (("a.png", (48, 64)), ("b.png", (50, 50))):
+        write_png(tmp_path / name, rng.randint(0, 256, (h, w, 3)).astype(np.uint8))
+        paths.append(str(tmp_path / name))
+    out = tmp_path / "out"
+    infer.main(["--checkpoint-path", str(ckpt), "--images", *paths, "--out-dir", str(out),
+                "--img-size", str(SIZE), "--dtype", "float32", "--conf-thresh", "0.05",
+                "--device", "cpu"])
+    capsys.readouterr()
+    records = json.loads((out / "predictions.json").read_text())
+    assert [r["image"] for r in records] == paths
+    loaded = infer.load_model(model.cfg, str(ckpt), torch.device("cpu"))
+    for rec, path in zip(records, paths):
+        res = infer.infer_batch(loaded, infer.load_and_letterbox(path, SIZE)[None],
+                                conf_thresh=0.05)
+        n = int(res.detections.valid[0].sum())
+        assert n > 0 and rec["num_detections"] == n
+        assert rec["boxes_xyxy"] == res.detections.boxes[0, :n].tolist()
+        assert rec["scores"] == res.detections.scores[0, :n].tolist()
+        assert rec["labels"] == res.detections.labels[0, :n].tolist()
+        assert rec["img_cls_probs"] == res.outputs["cls_probs"][0].float().tolist()
+
+
+def fake(device, dim):
+    """Stands in for an NHWC block input of width ``dim`` on ``device``
+    (use_kernel reads only its device type and width; the CPU tests have
+    no card)."""
+    return types.SimpleNamespace(device=torch.device(device), shape=(1, 8, 8, dim))
+
+
+@pytest.mark.parametrize("pallas", ["auto", "on", "off"])
+def test_use_kernel_stage_policy(pallas):
+    """Under "auto" the inference forward runs K1 for C <= 384 and the eager
+    block at C = 768 on the card, and training keeps the kernel at every
+    width (``bwd_for_dim`` decides there); the CPU runs eager. "on" runs the
+    kernel everywhere, "off" nowhere."""
+    for dim in (96, 192, 384, 768):
+        for train in (False, True):
+            for dev in ("cuda", "cpu"):
+                want = {"on": True, "off": False,
+                        "auto": dev == "cuda" and (train or dim <= 384)}[pallas]
+                assert use_kernel(pallas, fake(dev, dim), train) is want, (dim, train, dev)
+    with pytest.raises(ValueError):
+        use_kernel("sometimes", fake("cuda", 96))
