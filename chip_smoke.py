@@ -10,13 +10,18 @@ is printed):
   2. build the kernels from ``csrc/``, one nvcc per source, all at once: the
      ConvNeXt-block forward (K1), the block backwards (K2 and K4, one
      source), the standalone depthwise 7x7 (K3) and the kernel lab (K5);
-     time the builds, print registers and spills, and K2's Hopper row pass's
-     shared memory and CTAs per SM at each of its widths;
-  3. K1 against its plain twin at the four 640^2 stage shapes (batch 2),
-     an odd non-square shape and a narrow (C=48) one, in bf16 (atol/rtol 3e-2) and fp32 (atol/rtol
-     1e-2: the kernel's products run in TF32, the twin in full fp32); then
-     K1, the twin and the eager block timed with CUDA events at the batch-16
-     shapes the model gives it;
+     time the builds, print registers and spills, and the shared memory and
+     CTAs per SM of K1's Hopper design and K2's Hopper row pass at each of
+     their widths;
+  3. K1 against its plain twin at the four 640^2 stage shapes (batch 2 and
+     batch 16), an odd non-square shape and a narrow (C=48) one, in bf16
+     (atol/rtol 3e-2) and fp32 (atol/rtol 1e-2: the kernel's products run in
+     TF32, the twin in full fp32). In bf16 both forms and both designs (the
+     route's, and the first design through ``convnext_block_v0``): two calls
+     equal bit for bit, the saving form's out equal to the inference form's
+     and its y to the first design's. Then "[k1-time]": the routed design,
+     the first design, the twin and the eager block timed with CUDA events
+     in turns at the batch-16 shapes the model gives K1;
   4. the full-width v1 model (ConvNeXt-Tiny 3/3/9/3, BiFPN 256x2, 640^2,
      bf16) with seeded random weights, every parameter and BN statistic
      perturbed (``randomize``), serves 3 batches of 16 and 1 single image
@@ -47,10 +52,12 @@ is printed):
      tol * max |want|; two K2 calls equal bit for bit); then at the batch-8
      stage shapes of the train path, the same checks in bf16, and K2 (on
      the operands that the forward folded), its plain version, the eager
-     block's autograd backward and the saving form timed with CUDA events,
-     K2 beside its time before the Hopper pipeline (the first design's,
-     PERF.md §6); "[k2-split]": K2's device time per launch by kernel at the
-     three batch-8 stage shapes (``torch.profiler``), at most five launches
+     block's autograd backward timed with CUDA events, K2 beside its time
+     before the Hopper pipeline (the first design's, PERF.md §6); and the
+     saving form of K1's routed design beside its first design's in turns,
+     the twin's and the eager block's forward ("[k1-time] saving form");
+     "[k2-split]": K2's device time per launch by kernel at the three
+     batch-8 stage shapes (``torch.profiler``), at most five launches
      per call in bf16; the same in fp32, which runs K2's first design;
   7. the full-width v1 train step (batch 8, 640^2, bf16, seeded random
      weights as in phase 4, a synthetic seeded batch: 3 boxes per image,
@@ -93,7 +100,8 @@ is printed):
      32), at the batch-16 stage shapes and at (2, 13, 21, 48) (copy
      bit-exact; the dw family, dwbf16, dwln and mlpgelubf16 within one bf16
      step, rtol 2^-7 atol 1e-3; the other products' phases atol/rtol 3e-2),
-     ``full`` bit for bit against K1's ``convnext_block``; each variant timed
+     ``full`` bit for bit against K1's first design (``convnext_block_v0``,
+     the design the lab cuts down); each variant timed
      (``utils/timing.py::timeloop``) with and without ``padded_io`` beside
      its bound, its plain version and ``x.clone()`` / cuDNN's depthwise
      convolution where one call computes it ("[lab-time]"); K1's time split
@@ -165,13 +173,15 @@ def cuda_ms(fn, iters=20, warmup=3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, key="", iters=20) -> float:
+def device_ms(fn, key="", iters=20, launches=None) -> float:
     """Device time per call of the kernels whose name holds ``key`` (every
     kernel of the call for the empty key; ``torch.profiler``, after one
     warm-up call): the kernels alone, without the host's share of a call,
     which CUDA events around back-to-back calls take in when the host issues
-    the calls slower than the device runs them."""
-    total = sum(v["ms"] for k, v in kernel_split(fn, iters).items() if key in k)
+    the calls slower than the device runs them. ``launches``: the keyed
+    kernel's known launches per call (see :func:`kernel_split`)."""
+    known = {key: launches} if launches else None
+    total = sum(v["ms"] for k, v in kernel_split(fn, iters, known=known).items() if key in k)
     if total <= 0:
         raise RuntimeError(f"the profiler recorded no device time for {key or 'the call'}")
     return total
@@ -260,6 +270,9 @@ def k4_bound(b, h, w, c):
 
 
 def phase_kernel(cnb, dev, gen):
+    """K1 against its plain twin, both forms, on both designs where the route
+    has two (bf16 up to C = 384: the Hopper design, and the first design
+    through ``convnext_block_v0``); then "[k1-time]"."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     # + an odd non-square shape, and C=48: a partial dwconv channel chunk and,
@@ -270,34 +283,78 @@ def phase_kernel(cnb, dev, gen):
         for dt, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, FP32_TOL)):
             args = block_args(gen, *shape, dt, dev)
             got = cnb.convnext_block(*args)
-            want = cnb.convnext_block_plain(*args)
+            want, want_y = cnb.convnext_block_plain_saving(*args)
             torch.cuda.synchronize()
             err = check_close(f"K1 {shape} {dt}", got, want, tol)
-            if dt == torch.bfloat16:
-                max_err = max(max_err, err)
-            log(f"[k1] {shape} {str(dt):15s} max_abs_err {err:.3e} (tol {tol})")
+            if dt == torch.float32:
+                log(f"[k1] {shape} {str(dt):15s} max_abs_err {err:.3e} (tol {tol})")
+                continue
+            max_err = max(max_err, err)
+            max_err = max(max_err, check_k1_designs(cnb, args, got, want, want_y, shape))
 
     per_stage, k_total, p_total = [], 0.0, 0.0
     for c, s, depth in STAGES:
         args = block_args(gen, BATCH, s, s, c, torch.bfloat16, dev)
-        err = check_close(f"K1 batch-16 {s}x{s}x{c}", cnb.convnext_block(*args),
-                          cnb.convnext_block_plain(*args), BF16_TOL)
+        got = cnb.convnext_block(*args)
+        want, want_y = cnb.convnext_block_plain_saving(*args)
+        err = check_close(f"K1 batch-16 {s}x{s}x{c}", got, want, BF16_TOL)
+        err = max(err, check_k1_designs(cnb, args, got, want, want_y, (BATCH, s, s, c)))
         max_err = max(max_err, err)
+        del got, want, want_y
+        # turns: twin, first design, routed, eager, routed, first design, twin
         t_plain = cuda_ms(lambda: cnb.convnext_block_plain(*args))
+        t_v0 = cuda_ms(lambda: cnb.convnext_block_v0(*args))
         t_k1 = cuda_ms(lambda: cnb.convnext_block(*args))
         t_eager = cuda_ms(lambda: cnb.convnext_block_ref(*args))
         t_k1b = cuda_ms(lambda: cnb.convnext_block(*args))
+        t_v0b = cuda_ms(lambda: cnb.convnext_block_v0(*args))
         t_plainb = cuda_ms(lambda: cnb.convnext_block_plain(*args))
-        k_ms, p_ms = (t_k1 + t_k1b) / 2, (t_plain + t_plainb) / 2
+        k_ms, v0_ms, p_ms = (t_k1 + t_k1b) / 2, (t_v0 + t_v0b) / 2, (t_plain + t_plainb) / 2
         b_ms, b_by = k1_bound(BATCH, s, s, c)
-        per_stage.append({"shape": [BATCH, s, s, c], "ms": k_ms, "plain_ms": p_ms,
+        hopper = cnb.forward_route(torch.bfloat16, c)
+        per_stage.append({"shape": [BATCH, s, s, c], "design": "hopper" if hopper else "first",
+                          "ms": k_ms, "first_design_ms": v0_ms, "plain_ms": p_ms,
                           "eager_ms": t_eager, "bound_ms": b_ms, "bound_by": b_by,
                           "max_abs_err": err})
         k_total += depth * k_ms
         p_total += depth * p_ms
-        log(f"[k1-time] ({BATCH},{s},{s},{c}) bf16: kernel {t_k1:.4f}/{t_k1b:.4f} ms, "
-            f"twin {t_plain:.4f}/{t_plainb:.4f} ms, eager erf block {t_eager:.4f} ms")
+        log(f"[k1-time] ({BATCH},{s},{s},{c}) bf16: routed ({per_stage[-1]['design']} design) "
+            f"{t_k1:.4f}/{t_k1b:.4f} ms, first design {t_v0:.4f}/{t_v0b:.4f} ms, "
+            f"twin {t_plain:.4f}/{t_plainb:.4f} ms, eager erf block {t_eager:.4f} ms; "
+            f"bound {b_ms:.4f} ms ({b_by})")
+        if hopper and k_ms > v0_ms:
+            log(f"[k1-time] NOTE: at C={c} the route's Hopper design ({k_ms:.4f} ms) is slower "
+                f"than the first design ({v0_ms:.4f} ms)")
     return max_err, per_stage, k_total, p_total
+
+
+def check_k1_designs(cnb, args, got, want, want_y, shape):
+    """bf16: a second call of K1's routed launch equal bit for bit; its saving
+    form against the twin, its out equal to the inference form's and its y to
+    the first design's, bit for bit; the first design against the twin.
+    Returns the largest error against the twin."""
+    again = cnb.convnext_block(*args)
+    out, y = cnb.convnext_block_saving(*args)
+    v0 = cnb.convnext_block_v0(*args)
+    v0_out, v0_y = cnb.convnext_block_v0(*args, saving=True)
+    torch.cuda.synchronize()
+    design = "hopper" if cnb.forward_route(args[0].dtype, shape[-1]) else "first"
+    if not torch.equal(got, again):
+        raise RuntimeError(f"K1 {shape} bf16 ({design} design): two calls differ")
+    if not torch.equal(out, got):
+        raise RuntimeError(f"K1 {shape} bf16 ({design} design): the saving form's out differs "
+                           f"from the inference form's")
+    if not torch.equal(y, v0_y):
+        raise RuntimeError(f"K1 {shape} bf16 ({design} design): the saving form's y differs "
+                           f"from the first design's")
+    errs = [check_close(f"K1 saving {shape} out", out, want, BF16_TOL),
+            check_close(f"K1 saving {shape} y", y, want_y, BF16_TOL),
+            check_close(f"K1 first design {shape}", v0, want, BF16_TOL),
+            check_close(f"K1 first design saving {shape} out", v0_out, want, BF16_TOL)]
+    log(f"[k1] {shape} bf16 {design} design: max_abs_err {errs[0]:.3e}, saving y "
+        f"{errs[1]:.3e}; first design {errs[2]:.3e} (tol {BF16_TOL}); two calls, out of both "
+        f"forms and y of both designs equal bit for bit")
+    return max(errs)
 
 
 @torch.no_grad()
@@ -595,7 +652,7 @@ def phase_training_kernels(cnb, k2, dev, gen):
                 f"K2 dx {e_dx:.3e}, gradients {e_sc:.3e} of scale (tol {tol})")
 
     per_stage, totals = [], {"k2": 0.0, "plain": 0.0, "eager": 0.0, "sav": 0.0,
-                             "sav_plain": 0.0}
+                             "sav_v0": 0.0, "sav_plain": 0.0}
     train_stages = STAGES[:3]  # the stages that train through K2 under "auto"
     totals["bound"] = depth_sum(
         [k2_bound(TRAIN_BATCH, s, s, c) for c, s, _ in train_stages], train_stages)
@@ -630,7 +687,13 @@ def phase_training_kernels(cnb, k2, dev, gen):
         t_k2 = cuda_ms(lambda: k2.convnext_block_bwd(x, y, g, *params, ops=ops))
         t_eager = cuda_ms(lambda: torch.autograd.grad(ref_out, leaves, g, retain_graph=True))
         t_k2b = cuda_ms(lambda: k2.convnext_block_bwd(x, y, g, *params, ops=ops))
+        # the saving form, turns: first design, routed, routed, first design
+        t_sav_v0 = cuda_ms(lambda: cnb.convnext_block_v0(x, *params, saving=True))
         t_sav = cuda_ms(lambda: cnb.convnext_block_saving(x, *params))
+        t_sav_b = cuda_ms(lambda: cnb.convnext_block_saving(x, *params))
+        t_sav_v0b = cuda_ms(lambda: cnb.convnext_block_v0(x, *params, saving=True))
+        t_sav, t_sav_v0 = (t_sav + t_sav_b) / 2, (t_sav_v0 + t_sav_v0b) / 2
+        t_fwd_eager = cuda_ms(lambda: cnb.convnext_block_ref(x, *params))
         t_sav_plain = cuda_ms(lambda: cnb.convnext_block_plain_saving(x, *params), iters=5)
         b_ms, b_by = k2_bound(*shape)
         sb_ms, sb_by = k1_bound(*shape, saving=True)
@@ -638,57 +701,97 @@ def phase_training_kernels(cnb, k2, dev, gen):
         per_stage.append({"shape": list(shape), "ms": k_ms, "plain_ms": t_plain,
                           "eager_bwd_ms": t_eager, "bound_ms": b_ms, "bound_by": b_by,
                           "max_abs_err_dx": e_dx, "grad_err_of_scale": e_sc,
-                          "saving_ms": t_sav, "saving_plain_ms": t_sav_plain,
+                          "saving_ms": t_sav, "saving_first_design_ms": t_sav_v0,
+                          "saving_plain_ms": t_sav_plain, "eager_fwd_ms": t_fwd_eager,
                           "saving_bound_ms": sb_ms, "saving_bound_by": sb_by,
                           "saving_max_abs_err": max(e_out, e_y)})
         for key, v in (("k2", k_ms), ("plain", t_plain), ("eager", t_eager),
-                       ("sav", t_sav), ("sav_plain", t_sav_plain)):
+                       ("sav", t_sav), ("sav_v0", t_sav_v0), ("sav_plain", t_sav_plain)):
             totals[key] += depth * v
         log(f"[k2] {shape} bf16 K1 saving out {e_out:.3e} y {e_y:.3e}; K2 dx {e_dx:.3e}, "
             f"gradients {e_sc:.3e} of scale (tol {BF16_TOL})")
         log(f"[k2-time] {shape} bf16: K2 {t_k2:.4f}/{t_k2b:.4f} ms (the first design "
             f"{K2_MS_BEFORE[c]} ms, PERF.md §6; bound {b_ms:.4f} ms, {b_by}), "
             f"plain {t_plain:.4f} ms, eager autograd backward "
-            f"{t_eager:.4f} ms; K1 saving form {t_sav:.4f} ms (plain {t_sav_plain:.4f}, "
-            f"bound {sb_ms:.4f} ms, {sb_by})")
+            f"{t_eager:.4f} ms")
+        log(f"[k1-time] saving form {shape} bf16: routed "
+            f"({'hopper' if cnb.forward_route(x.dtype, c) else 'first'} design) {t_sav:.4f} ms, "
+            f"first design {t_sav_v0:.4f} ms (each the mean of two turns), twin "
+            f"{t_sav_plain:.4f} ms, eager erf block forward {t_fwd_eager:.4f} ms; bound "
+            f"{sb_ms:.4f} ms ({sb_by})")
     return err_sav, err_dx, err_scale, per_stage, totals
 
 
-def kernel_split(fn, iters=10):
+def device_events(run, attempts=4):
+    """The device's events of ``run()`` under ``torch.profiler`` (``run``
+    ends in no synchronise; this adds one), and the host-clock seconds of
+    the profiled run. On the H100 machine the profiler has come back with no
+    device event at all for a call that launched kernels (once, in phase
+    12); such a profile is taken again, up to ``attempts`` profiles."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for attempt in range(1, attempts + 1):
+        with torch.profiler.profile(activities=acts, acc_events=True) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if sum(e.device_time for e in events) > 0:
+            return events, wall_s
+        log(f"[profile] profile {attempt} of {attempts} recorded no device time")
+    raise RuntimeError(f"the profiler recorded no device time in {attempts} profiles")
+
+
+def kernel_split(fn, iters=10, attempts=3, known=None):
     """Device time and launches per call of ``fn``, by kernel (the name up to
     its argument list), from ``torch.profiler`` after one warm-up call: each
     kernel's mean time per recorded launch times its launches per call. The
     profiler can drop events on a loaded host (seen on the H100 machine: 9 of
-    10 launches of a kernel recorded), so a kernel's launches per call are
-    its recorded count over ``iters`` rounded to a whole number, and the
-    split fails when that count is not within a quarter of a whole, nonzero
-    number of launches per call; ``recorded`` keeps the raw ratio."""
+    10, and once 14 of 20, launches of a kernel recorded), so a kernel's
+    launches per call are its recorded count over ``iters`` rounded to a
+    whole number; when that count is not within a quarter of a whole,
+    nonzero number of launches per call, the call is profiled again, and
+    the split fails after ``attempts`` such profiles; ``recorded`` keeps the
+    raw ratio. ``known`` maps a name fragment to the launches per call that
+    the caller knows its kernel makes (K3's one per call): such a kernel is
+    scaled to that count from whatever launches were recorded (at least one,
+    at most that count per call; on a loaded host the profiler recorded 14
+    of K3's 20 in every one of three profiles)."""
     from collections import defaultdict
+
+    known = known or {}
+
+    def per_call(k, n):
+        return next((c for frag, c in known.items() if frag in k), round(n[k] / iters))
+
+    def whole(k, n):
+        c = per_call(k, n)
+        if any(frag in k for frag in known):
+            return 1 <= n[k] <= c * iters
+        return c >= 1 and abs(n[k] / iters - c) <= 0.25 * c
 
     fn()
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts, acc_events=True) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    ms, n = defaultdict(float), defaultdict(int)
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+    for attempt in range(1, attempts + 1):
+        events, _ = device_events(lambda: [fn() for _ in range(iters)])
+        ms, n = defaultdict(float), defaultdict(int)
+        for e in events:
             name = e.name.replace("(anonymous namespace)::", "").replace("void ", "")
             name = name.split("(")[0]
             ms[name] += e.device_time / 1e3
             n[name] += 1
-    if not ms:
-        raise RuntimeError("the profiler recorded no device time")
+        off = [(k, n[k]) for k in ms if not whole(k, n)]
+        if not off:
+            break
+        msg = (f"the profiler recorded {off[0][1]} launches of {off[0][0]} over {iters} calls: "
+               f"not a whole number per call")
+        if attempt == attempts:
+            raise RuntimeError(msg + f" ({attempts} profiles)")
+        log(f"[profile] {msg}; profiling again")
     out = {}
     for k in sorted(ms, key=lambda k: -ms[k]):
-        ratio = n[k] / iters
-        per_call = round(ratio)
-        if per_call < 1 or abs(ratio - per_call) > 0.25 * per_call:
-            raise RuntimeError(f"the profiler recorded {n[k]} launches of {k} over {iters} calls: "
-                               f"not a whole number per call")
-        out[k] = {"ms": ms[k] / n[k] * per_call, "launches": per_call, "recorded": ratio}
+        out[k] = {"ms": ms[k] / n[k] * per_call(k, n), "launches": per_call(k, n),
+                  "recorded": n[k] / iters}
     return out
 
 
@@ -758,7 +861,7 @@ def phase_dwconv(k3, dev, gen):
         t_plain = cuda_ms(lambda: k3.dwconv7_plain(x, taps))
         t_lib = cuda_ms(lambda: F.conv2d(xf.permute(0, 3, 1, 2), w, padding=3, groups=c))
         t_k3b = cuda_ms(lambda: k3.dwconv7(x, taps))
-        t_dev = device_ms(lambda: k3.dwconv7(x, taps), "cnb_dwconv7")
+        t_dev = device_ms(lambda: k3.dwconv7(x, taps), "cnb_dwconv7", launches=1)
         b_ms, b_by = k3_bound(*shape)
         per_stage.append({"shape": list(shape), "ms": (t_k3 + t_k3b) / 2, "plain_ms": t_plain,
                           "library_ms": t_lib, "bound_ms": b_ms, "bound_by": b_by,
@@ -992,15 +1095,17 @@ def phase_lab(cnb, dev):
                                        f"{err.max().item():.3e} (rtol {rtol}, atol {atol})")
                 errs.append((name, tm, err.max().item()))
                 max_err = max(max_err, err.max().item())
-        # full is K1: the model's kernel, the same launch, bit for bit
+        # full is K1's first design (the lab's device code), the same launch,
+        # bit for bit
         ones = torch.ones(c, device=dev)
-        k1_out = cnb.convnext_block(
+        k1_out = cnb.convnext_block_v0(
             x, taps.permute(2, 0, 1).reshape(c, 1, 7, 7), zeros[:c], ones, zeros[:c],
             w1k.t().float(), zeros, w2k.t().float(), zeros[:c], ones)
         if not torch.equal(lab.lab_variant("full", x, taps, w1k, w2k, zeros=zeros), k1_out):
-            raise RuntimeError(f"[lab] {shape}: full differs from K1's convnext_block")
+            raise RuntimeError(f"[lab] {shape}: full differs from K1's first design")
         log(f"[lab] {shape} bf16, kernel vs plain max abs err per variant and tile: "
-            + ", ".join(f"{n}@{tm} {e:.2e}" for n, tm, e in errs) + "; full == K1 bit for bit")
+            + ", ".join(f"{n}@{tm} {e:.2e}" for n, tm, e in errs)
+            + "; full == K1's first design (convnext_block_v0) bit for bit")
 
     iters = 10
     table = {name: [] for name in lab.VARIANTS}
@@ -1074,10 +1179,12 @@ def phase_lab(cnb, dev):
 
 # Device kernels by category, first match wins, against the lower-cased
 # demangled name. The port's kernels carry their own prefixes (K1
-# ``cnb_forward_kernel``, K2 ``k2h::k2_*_kernel`` and ``cnb_bwd_spatial_kernel``,
-# K4 ``cnb_bwd_*_kernel``, K3 ``cnb_dwconv7_kernel``), which no PyTorch kernel has.
+# ``cnb_forward_kernel`` and ``k1h::k1_forward_kernel``, K2
+# ``k2h::k2_*_kernel`` and ``cnb_bwd_spatial_kernel``, K4
+# ``cnb_bwd_*_kernel``, K3 ``cnb_dwconv7_kernel``), which no PyTorch kernel
+# has.
 CATEGORIES = (
-    ("K1 (convnext_block.cu)", ("cnb_forward_kernel",)),
+    ("K1 (convnext_block.cu)", ("cnb_forward_kernel", "k1h::")),
     ("K3 (dwconv.cuh)", ("cnb_dwconv7",)),
     ("K2 (convnext_block_bwd.cu)", ("cnb_bwd_", "k2h::")),
     ("optimizer (foreach, flat AdamW)", ("foreach", "multi_tensor")),
@@ -1109,21 +1216,13 @@ def profile_step(step, state, batch, gen) -> dict:
 
     step(state, batch, gen)
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts, acc_events=True) as prof:
-        t0 = time.perf_counter()
-        for _ in range(PROFILE_STEPS):
-            step(state, batch, gen)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / PROFILE_STEPS
+    events, wall_s = device_events(lambda: [step(state, batch, gen) for _ in range(PROFILE_STEPS)])
+    wall_ms = wall_s * 1e3 / PROFILE_STEPS
     by_cat, count = defaultdict(float), 0
-    for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
-            by_cat[category(evt.name)] += evt.device_time / 1e3 / PROFILE_STEPS
-            count += 1
+    for evt in events:
+        by_cat[category(evt.name)] += evt.device_time / 1e3 / PROFILE_STEPS
+        count += 1
     device_ms = sum(by_cat.values())
-    if device_ms <= 0:
-        raise RuntimeError("the profiler recorded no device time")
     return {"wall_ms_per_step_profiled": wall_ms, "device_kernel_ms_per_step": device_ms,
             "kernels_per_step": count / PROFILE_STEPS,
             "device_idle_share": max(0.0, 1.0 - device_ms / wall_ms),
@@ -1320,7 +1419,7 @@ def main(argv=None) -> int:
     for name, (path, report, secs) in builds.items():
         log(f"[build] {path.name} in {secs:.2f} s (the builds ran in parallel)")
         lines = [ln.strip() for ln in report.splitlines() if "registers" in ln or "spill" in ln
-                 or ("Compiling entry" in ln and "k2h" in ln)]
+                 or ("Compiling entry" in ln and ("k2h" in ln or "k1h" in ln))]
         if name == "kernel_lab":  # ~90 instantiations: a summary
             regs = [int(ln.split("Used ")[1].split()[0]) for ln in lines if "Used " in ln]
             spills = [ln for ln in lines if "spill" in ln and not ln.startswith("0 bytes spill")
@@ -1330,7 +1429,10 @@ def main(argv=None) -> int:
             continue
         for line in lines:
             log(f"[build] {line}")
-    for c in (48, 96, 192, 384):  # K2's Hopper row pass, one instantiation per width
+    for c in (48, 96, 192, 384):  # the Hopper kernels, one instantiation per width
+        for saving in (False, True):
+            log(f"[build] K1 Hopper design at C={c}{' (saving form)' if saving else ''}: "
+                f"{json.dumps(cnb.hopper_tile(c, saving))}")
         log(f"[build] K2 row pass at C={c}: {json.dumps(k2.row_pass_config(c))}")
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -1381,13 +1483,20 @@ def main(argv=None) -> int:
          "source": "multitask_bonetumor_yolo_tpu_torch/csrc/convnext_block.cu",
          "replaces": "multitask_bonetumor_yolo_tpu/ops/pallas/convnext_block.py:165",
          "launches": launches, "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms,
+         "first_design_ms": sum(d * row["first_design_ms"]
+                                for (_, _, d), row in zip(STAGES, per_stage)),
          "bound_ms": infer_bound[0], "bound_by": infer_bound[1], "per_stage": per_stage},
         {"name": "convnext_block_saving", **common,
          "source": "multitask_bonetumor_yolo_tpu_torch/csrc/convnext_block.cu",
          "replaces": "multitask_bonetumor_yolo_tpu/ops/pallas/convnext_block.py:563",
          "launches": n_saving, "max_abs_err": err_sav, "ms": tot["sav"],
-         "plain_ms": tot["sav_plain"], "bound_ms": tot["sav_bound"][0],
-         "bound_by": tot["sav_bound"][1]},
+         "plain_ms": tot["sav_plain"], "first_design_ms": tot["sav_v0"],
+         "bound_ms": tot["sav_bound"][0], "bound_by": tot["sav_bound"][1],
+         "per_stage": [{"shape": row["shape"], "ms": row["saving_ms"],
+                        "first_design_ms": row["saving_first_design_ms"],
+                        "plain_ms": row["saving_plain_ms"], "eager_fwd_ms": row["eager_fwd_ms"],
+                        "bound_ms": row["saving_bound_ms"], "bound_by": row["saving_bound_by"],
+                        "max_abs_err": row["saving_max_abs_err"]} for row in bwd_stages]},
         {"name": "convnext_block_bwd", **common,
          "source": "multitask_bonetumor_yolo_tpu_torch/csrc/convnext_block_bwd.cu",
          "replaces": "multitask_bonetumor_yolo_tpu/ops/pallas/convnext_block_bwd.py:312",

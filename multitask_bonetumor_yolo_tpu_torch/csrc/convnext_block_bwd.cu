@@ -777,15 +777,6 @@ constexpr int HMAXC = 384;   // widest C the row pass holds on chip
 constexpr size_t WTILE = size_t(WM) * 128;  // one 128-row x 64-column bf16 tile
 constexpr int SST = TM + 8;  // row stride of the transposed d_h / a staging: no bank conflicts
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-// the dynamic shared memory, its base rounded up to the 1024 bytes the
-// 128-byte swizzle is anchored to (the launch asks for 1024 bytes more)
-__device__ __forceinline__ unsigned char* smem_base(unsigned char* raw) {
-  const uint32_t a = smem_u32(raw);
-  return raw + (((a + 1023u) & ~1023u) - a);
-}
 __device__ __forceinline__ float bf(bf16 v) { return __bfloat162float(v); }
 
 // ---- row pass -------------------------------------------------------------
@@ -859,7 +850,7 @@ __global__ void __launch_bounds__(RT, CP <= 96 ? 2 : 1) k2_row_kernel(const RowA
   using L = RowSmem<CP, NC>;
   constexpr int NH = NC / 2, ND = CP / 2, KS = CP / 16, KD = NC / 16, CH = CP / 8;
   extern __shared__ unsigned char k2h_smem[];
-  unsigned char* S = smem_base(k2h_smem);
+  unsigned char* S = sm90::smem_base(k2h_smem);
   float* s_mean = reinterpret_cast<float*>(S + L::MEAN);
   float* s_rstd = s_mean + TM;
   float* s_db1 = reinterpret_cast<float*>(S + L::DB1);
@@ -1201,7 +1192,7 @@ __device__ __forceinline__ void w_load(const WArgs& w, int q, unsigned char* st,
 
 __global__ void __launch_bounds__(WT) k2_weight_kernel(const WArgs w) {
   extern __shared__ unsigned char k2h_smem[];
-  unsigned char* S = smem_base(k2h_smem);
+  unsigned char* S = sm90::smem_base(k2h_smem);
   const int q = blockIdx.z / w.S, sl = blockIdx.z % w.S;
   const int n0 = blockIdx.x * WM, m0 = blockIdx.y * WM;
   const int kbeg = sl * w.kslice, kend = min(w.Pp, kbeg + w.kslice);

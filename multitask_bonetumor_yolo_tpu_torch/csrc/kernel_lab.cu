@@ -8,12 +8,13 @@
 // +dwconv (six Mosaic schedules and a bf16 form), +LN, the MLP alone (with
 // and without GELU, and a bf16 GELU), and the full block.
 //
-// Every phase here is an instantiation of K1's own device code
-// (csrc/convnext_block.cuh, whose header lists the phases and the six dw
-// schedules) at K1's tile for the channel range, bf16 only: the same launch
+// Every phase here is an instantiation of the device code of K1's first
+// design (csrc/convnext_block.cuh, whose header lists the phases and the six
+// dw schedules) at its tile for the channel range, bf16 only: the same launch
 // shape, the same threads and the same shared-memory size, so that two
 // phases differ by their work and not by their occupancy. The lab's `full`
-// is K1's own entry cnb_forward (csrc/convnext_block.cu); this library holds
+// is that design's own entry cnb_forward_v0 (csrc/convnext_block.cu; K1's
+// bf16 calls up to C = 384 run its Hopper design instead); this library holds
 // a FULL instantiation only at the second tile, TM = 32 pixels per CTA
 // where K1's own tile is larger. Only the dw-only phases' instantiations
 // carry a dw schedule, and they carry no MLP code.
@@ -54,7 +55,7 @@ int go(const Args& a) {
 }
 
 // ALT: the second tile (TM = 32) of a channel range whose K1 tile is larger;
-// only there does the lab instantiate FULL (K1's own tile is cnb_forward's)
+// only there does the lab instantiate FULL (K1's own tile is cnb_forward_v0's)
 template <typename K, bool ALT>
 int by_phase(int phase, int sched, const Args& a) {
   switch (phase) {

@@ -37,6 +37,13 @@ __device__ __forceinline__ uint64_t desc(const void* p) {
          (uint64_t(1) << 62);
 }
 
+// the dynamic shared memory, its base rounded up to the 1024 bytes the
+// 128-byte swizzle is anchored to (a launch asks for 1024 bytes more)
+__device__ __forceinline__ unsigned char* smem_base(unsigned char* raw) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(raw));
+  return raw + (((a + 1023u) & ~1023u) - a);
+}
+
 __device__ __forceinline__ void fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }

@@ -1,13 +1,16 @@
 """Fused ConvNeXt block: the CUDA kernel's wrapper and its plain versions.
 
 Counterpart of ``multitask_bonetumor_yolo_tpu/ops/pallas/convnext_block.py``.
-The kernel (``csrc/convnext_block.cu``; its header says what bounds it and
-how it is laid out) computes
+The kernel K1 (``csrc/convnext_block.cu``; its header says what bounds it and
+how its two designs are laid out) computes
 
     out = x + fc2'(gelu_tanh(fc1'(LN(dwconv7x7(x) + b_dw))))
 
 with LN scale/bias folded into fc1 and layer-scale gamma into fc2
-(:func:`fold_block_params`). The functions here:
+(:func:`kernel_operands`). Its route (:func:`forward_route`, the library's
+rule) sends bf16 up to C = 384 to its Hopper design (the products on wgmma)
+and fp32 and C = 768 to its first design (wmma); the two take the folded
+weights in different layouts. The functions here:
 
   * :func:`convnext_block` — the wrapper: on a CUDA tensor it launches the
     kernel or raises; on a CPU tensor it returns the plain twin. When
@@ -23,6 +26,9 @@ with LN scale/bias folded into fc1 and layer-scale gamma into fc2
   * :func:`convnext_block_saving` — the residual-saving form (JAX
     ``save_res=True``): ``(out, y)`` with ``y = dwconv7x7(x) + b_dw`` in the
     compute dtype, the input of the backward.
+  * :func:`convnext_block_v0` — K1's first design whatever the route, both
+    forms: the Hopper design's "before" and the kernel lab's ``full``. No
+    model path, option or variable reaches it.
   * :func:`convnext_block_plain` / :func:`convnext_block_plain_saving` — the
     kernel's plain twins: the same math (tanh-GELU, folds, fp32 dwconv/LN,
     casts where the kernel casts) in PyTorch. Tests and ``chip_smoke.py``
@@ -36,10 +42,10 @@ Public layout: ``x`` is NHWC ``[B, H, W, C]`` (for the kernel: contiguous, the
 in the port's torch layouts: ``dw_kernel [C, 1, 7, 7]``, ``w1 [4C, C]`` and
 ``w2 [C, 4C]`` (``nn.Linear``), vectors ``[C]`` / ``[4C]``.
 
-Launch counts: ``convnext_block.launches`` (the inference form) and
-``convnext_block_saving.launches`` (the residual-saving form) are plain
-integers that the wrappers raise by one at each kernel launch, and nowhere
-else.
+Launch counts: ``convnext_block.launches`` (the inference form),
+``convnext_block_saving.launches`` (the residual-saving form) and
+``convnext_block_v0.launches`` (the first-design entry) are plain integers
+that the wrappers raise by one at each kernel launch, and nowhere else.
 """
 
 from __future__ import annotations
@@ -61,22 +67,34 @@ def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     return x * 0.5 * (1.0 + torch.tanh(0.7978845608028654 * (x + 0.044715 * x * x * x)))
 
 
-def fold_block_params(dw_kernel, dw_bias, ln_scale, ln_bias, w1, b1, w2, b2, gamma):
-    """Kernel-ready fp32 parameters: taps ``[49, C]``, dw bias, and
-    ``w1' [C, 4C] = ln_scale * w1``, ``b1' = b1 + ln_bias @ w1``,
-    ``w2' [4C, C] = w2 * gamma``, ``b2' = b2 * gamma``."""
+def fold_block_vectors(dw_kernel, dw_bias, ln_bias, w1, b1, b2, gamma):
+    """The folded fp32 vectors: taps ``[49, C]``, dw bias, ``b1' = b1 +
+    ln_bias @ w1^T`` and ``b2' = b2 * gamma``."""
     c = dw_kernel.shape[0]
-    w1_t = w1.float().t()  # [C, 4C]
-    w2_t = w2.float().t()  # [4C, C]
-    g = gamma.float()
     return (
         dw_kernel.float().reshape(c, 49).t().contiguous(),
         dw_bias.float().contiguous(),
-        (ln_scale.float()[:, None] * w1_t).contiguous(),
-        (b1.float() + ln_bias.float() @ w1_t).contiguous(),
-        (w2_t * g[None, :]).contiguous(),
-        (b2.float() * g).contiguous(),
+        (b1.float() + ln_bias.float() @ w1.float().t()).contiguous(),
+        (b2.float() * gamma.float()).contiguous(),
     )
+
+
+def fold_block_weights_t(ln_scale, w1, w2, gamma):
+    """The folded fp32 weights in the torch layouts (K-major for both
+    products, no transpose): ``w1'^T [4C, C] = w1 * ln_scale`` and ``w2'^T
+    [C, 4C] = gamma * w2``."""
+    return (w1.float() * ln_scale.float()[None, :]).contiguous(), (
+        gamma.float()[:, None] * w2.float()).contiguous()
+
+
+def fold_block_params(dw_kernel, dw_bias, ln_scale, ln_bias, w1, b1, w2, b2, gamma):
+    """Kernel-ready fp32 parameters: taps ``[49, C]``, dw bias, and
+    ``w1' [C, 4C] = ln_scale * w1``, ``b1' = b1 + ln_bias @ w1``,
+    ``w2' [4C, C] = w2 * gamma``, ``b2' = b2 * gamma`` (the transposes of
+    :func:`fold_block_weights_t`, the same products)."""
+    taps, dwb, b1f, b2f = fold_block_vectors(dw_kernel, dw_bias, ln_bias, w1, b1, b2, gamma)
+    w1f_t, w2f_t = fold_block_weights_t(ln_scale, w1, w2, gamma)
+    return taps, dwb, w1f_t.t().contiguous(), b1f, w2f_t.t().contiguous(), b2f
 
 
 def convnext_block_ref(
@@ -141,9 +159,34 @@ def convnext_block_plain(
 def _library() -> ctypes.CDLL:
     lib = load_library("convnext_block")
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.cnb_forward.argtypes = [vp] * 9 + [ci] * 4 + [ctypes.c_float, ci, vp]
-    lib.cnb_forward.restype = ci
+    for fn in (lib.cnb_forward, lib.cnb_forward_v0):
+        fn.argtypes = [vp] * 9 + [ci] * 4 + [ctypes.c_float, ci, vp]
+        fn.restype = ci
+    lib.cnb_forward_route.argtypes = [ci, ci]
+    lib.cnb_forward_route.restype = ci
+    lib.cnb_forward_hopper_tile.argtypes = [ci, ci, ctypes.POINTER(ci)]
+    lib.cnb_forward_hopper_tile.restype = ci
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def forward_route(dt, c: int) -> bool:
+    """Whether K1's CUDA calls in compute dtype ``dt`` at width ``c`` run its
+    Hopper design (bf16 up to C = 384) rather than its first design: the
+    library's own rule (``cnb_forward_route``), which also picks the weight
+    layouts that :func:`kernel_operands` hands the kernel."""
+    return bool(_library().cnb_forward_route(c, int(dt == torch.bfloat16)))
+
+
+def hopper_tile(c: int, saving: bool = False) -> dict:
+    """K1's Hopper design at width ``c`` (bf16, ``c`` <= 384) on the current
+    card: its tile, CTAs per SM, shared memory per CTA and hidden chunk."""
+    info = (ctypes.c_int * 6)()
+    rc = _library().cnb_forward_hopper_tile(c, int(saving), info)
+    if rc != 0:
+        raise RuntimeError(f"cnb_forward_hopper_tile({c}) failed: CUDA error {rc}")
+    keys = ("tm", "th", "tw", "ctas_per_sm", "smem_bytes", "hidden_chunk")
+    return dict(zip(keys, info))
 
 
 def check_block_args(x, params):
@@ -175,47 +218,68 @@ def dt_copy(t, dt):
     return torch.empty(t.shape, dtype=dt, device=t.device).copy_(t)
 
 
-def kernel_operands(params, dt, backward: bool = False) -> dict:
-    """The block's parameters as the kernels take them, folded once:
-    K1's ``taps``, ``dw_bias``, ``w1f`` = dt(w1') [C,4C], ``b1f``, ``w2f`` =
-    dt(w2') [4C,C], ``b2f``; with ``backward`` also K2's: ``w1f_t`` [4C,C]
-    and, for its Hopper pipeline (``convnext_block_bwd.hopper_route``, the
-    library's rule), the raw-space
-    ``w1_t`` = dt(w1)^T [C,4C], else ``w2f_t`` [C,4C] and the raw-space
-    ``w1`` [4C,C] and ``w2_t`` [4C,C], all in ``dt``. The autograd Function
-    folds once per block and hands the same operands to K1's saving launch
-    and to K2."""
-    dw, dwb, w1f, b1f, w2f, b2f = fold_block_params(*params)
-    ops = dict(taps=dw, dw_bias=dwb, w1f=w1f.to(dt), b1f=b1f, w2f=w2f.to(dt), b2f=b2f)
+# K1's weight operands by design (the forward route), K2's by pipeline
+# (convnext_block_bwd.hopper_route), all in the compute dtype
+FWD_OPERANDS = {True: ("w1f_t", "w2f_t"), False: ("w1f", "w2f")}
+BWD_OPERANDS = {True: ("w1f_t", "w2f", "w1_t"),
+                False: ("w1f", "w2f_t", "w1f_t", "w1", "w2_t")}
+
+
+def kernel_operands(params, dt, backward: bool = False, hopper: bool | None = None) -> dict:
+    """The block's parameters as the kernels take them, folded once: the fp32
+    ``taps`` [49,C], ``dw_bias``, ``b1f`` and ``b2f``, and in ``dt`` the
+    weights that the routes name. K1 (:data:`FWD_OPERANDS`): on its Hopper
+    design (``hopper``; None asks :func:`forward_route`, the library's rule)
+    ``w1f_t`` = dt(w1')^T [4C,C] and ``w2f_t`` = dt(w2')^T [C,4C], folded in
+    the torch layouts; on its first design ``w1f`` = dt(w1') [C,4C] and
+    ``w2f`` = dt(w2') [4C,C]. With ``backward``, also K2's
+    (:data:`BWD_OPERANDS`, by ``convnext_block_bwd.hopper_route``): on its
+    Hopper pipeline ``w1f_t``, ``w2f`` and the raw-space ``w1_t`` = dt(w1)^T
+    [C,4C]; on its first design ``w1f``, ``w2f_t``, ``w1f_t`` and the raw
+    ``w1`` [4C,C] and ``w2_t`` [4C,C]. The autograd Function folds once per
+    block and hands the same operands to K1's saving launch and to K2."""
+    dw_kernel, dw_bias, ln_scale, ln_bias, w1, b1, w2, b2, gamma = params
+    c = w1.shape[1]
+    if hopper is None:
+        hopper = forward_route(dt, c)
+    need = set(FWD_OPERANDS[hopper])
     if backward:
-        from .convnext_block_bwd import hopper_route  # imports this module
+        from . import convnext_block_bwd as bwds  # imports this module
 
-        w1, w2 = params[4], params[6]
-        ops.update(w1f_t=dt_copy(ops["w1f"].t(), dt))
-        if hopper_route(dt, w1.shape[1]):
-            ops.update(w1_t=dt_copy(w1.t(), dt))
-        else:
-            ops.update(w2f_t=dt_copy(ops["w2f"].t(), dt), w1=w1.to(dt).contiguous(),
-                       w2_t=dt_copy(w2.t(), dt))
-    return ops
+        need |= set(BWD_OPERANDS[bwds.hopper_route(dt, c)])
+    taps, dwb, b1f, b2f = fold_block_vectors(dw_kernel, dw_bias, ln_bias, w1, b1, b2, gamma)
+    w1f_t, w2f_t = fold_block_weights_t(ln_scale, w1, w2, gamma)
+    make = {
+        "w1f_t": lambda: w1f_t.to(dt), "w2f_t": lambda: w2f_t.to(dt),
+        "w1f": lambda: dt_copy(w1f_t.t(), dt), "w2f": lambda: dt_copy(w2f_t.t(), dt),
+        "w1_t": lambda: dt_copy(w1.t(), dt), "w1": lambda: w1.to(dt).contiguous(),
+        "w2_t": lambda: dt_copy(w2.t(), dt),
+    }
+    return dict(taps=taps, dw_bias=dwb, b1f=b1f, b2f=b2f, **{k: make[k]() for k in sorted(need)})
 
 
-def _launch(x, params, eps, saving, ops=None):
+def _launch(x, params, eps, saving, ops=None, first_design=False):
+    """One launch of K1 (``first_design``: of its first design, through
+    ``cnb_forward_v0``, whatever the route); ``ops`` as
+    :func:`kernel_operands` folds them for this launch's design."""
     check_block_args(x, params)
     dt = x.dtype
-    if ops is None:
-        ops = kernel_operands(params, dt)
-    dw, dwb, w1f, b1f, w2f, b2f = (ops[k] for k in ("taps", "dw_bias", "w1f", "b1f", "w2f", "b2f"))
     b, h, w, c = x.shape
+    hopper = not first_design and forward_route(dt, c)
+    if ops is None:
+        ops = kernel_operands(params, dt, hopper=hopper)
+    dw, dwb, w1k, b1f, w2k, b2f = (ops[k] for k in (
+        "taps", "dw_bias", FWD_OPERANDS[hopper][0], "b1f", FWD_OPERANDS[hopper][1], "b2f"))
     out = torch.empty_like(x)
     y = torch.empty_like(x) if saving else None
     lib = _library()
+    fn = lib.cnb_forward_v0 if first_design else lib.cnb_forward
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.cnb_forward(
+        rc = fn(
             x.data_ptr(), out.data_ptr(), None if y is None else y.data_ptr(),
-            dw.data_ptr(), dwb.data_ptr(), w1f.data_ptr(), b1f.data_ptr(),
-            w2f.data_ptr(), b2f.data_ptr(),
+            dw.data_ptr(), dwb.data_ptr(), w1k.data_ptr(), b1f.data_ptr(),
+            w2k.data_ptr(), b2f.data_ptr(),
             b, h, w, c, float(eps), int(dt == torch.bfloat16), stream,
         )
     if rc != 0:
@@ -239,6 +303,26 @@ def convnext_block_saving(
 
 
 convnext_block_saving.launches = 0
+
+
+def convnext_block_v0(
+    x, dw_kernel, dw_bias, ln_scale, ln_bias, w1, b1, w2, b2, gamma, eps: float = 1e-6,
+    saving: bool = False,
+):
+    """K1's first design whatever the route (``cnb_forward_v0``): ``out``, or
+    ``(out, y)`` with ``saving``. It is the Hopper design's "before", timed
+    beside it, and the kernel lab's ``full``; no model path calls it. CUDA
+    tensor: one launch; CPU tensor: the plain twin."""
+    params = (dw_kernel, dw_bias, ln_scale, ln_bias, w1, b1, w2, b2, gamma)
+    if x.device.type == "cpu":
+        out, y = convnext_block_plain_saving(x, *params, eps=eps)
+    else:
+        out, y = _launch(x, params, eps, saving=saving, first_design=True)
+        convnext_block_v0.launches += 1
+    return (out, y) if saving else out
+
+
+convnext_block_v0.launches = 0
 
 
 BWD_ROUTES = ("fused", "ref", "fused_v1", "explicit")

@@ -24,8 +24,10 @@ goes. Its 14 variants, each a function of x bf16 ``[B, H, W, C]``, the taps
   * ``mlpgelubf16`` — ``mlp`` with the tanh-GELU evaluated in bf16, each op
     rounded, on the bf16-rounded hidden layer.
   * ``full`` — dw -> LN -> fc1 -> tanh-GELU -> fc2 -> + x, no biases, unit LN
-    and unit gamma: K1 itself, through K1's own C entry ``cnb_forward`` with
-    zero biases (the fold of a unit LN and a unit gamma is the identity).
+    and unit gamma: K1's first design itself, through its own C entry
+    ``cnb_forward_v0`` with zero biases (the fold of a unit LN and a unit
+    gamma is the identity). The lab is that design cut down; K1's bf16 calls
+    up to C = 384 run its Hopper design, which the lab does not cut.
 
 Where the LN forms differ, the port keeps K1's on both sides (the kernel
 and its plain version): fp32 moments as E[y^2] - mean^2, clamped at 0. The
@@ -34,7 +36,7 @@ JAX lab's LN is two-pass; the tests' tolerance covers the difference.
 The functions here:
 
   * :func:`lab_variant` — on a CUDA tensor it launches the variant's kernel
-    (``csrc/kernel_lab.cu``, or K1's ``cnb_forward`` for ``full``) or
+    (``csrc/kernel_lab.cu``, or K1's ``cnb_forward_v0`` for ``full``) or
     raises; on a CPU tensor it returns the plain version.
   * :func:`lab_variant_plain` — the variant step by step in PyTorch, with the
     casts where the JAX lab casts.
@@ -216,8 +218,9 @@ def _library() -> ctypes.CDLL:
 
 @functools.lru_cache(maxsize=None)
 def k1_tile(c: int) -> tuple[int, int, int, int]:
-    """(TM, TH, TW, CTAs per SM) of K1's bf16 inference launch at C = ``c``,
-    asked of K1's library (``cnb_forward_tile``; needs a card)."""
+    """(TM, TH, TW, CTAs per SM) of the bf16 inference launch of K1's first
+    design at C = ``c``, asked of K1's library (``cnb_forward_tile``; needs a
+    card)."""
     lib = k1._library()
     ci = ctypes.c_int
     lib.cnb_forward_tile.argtypes = [ci] * 3 + [ctypes.POINTER(ci)]
@@ -230,8 +233,8 @@ def k1_tile(c: int) -> tuple[int, int, int, int]:
 
 
 def k1_tile_pixels(c: int) -> int:
-    """K1's TM at C = ``c`` without asking the library, for the CPU route's
-    argument checks: the rule of K1's launch table (``launch()`` in
+    """The TM of K1's first design at C = ``c`` without asking the library,
+    for the CPU route's argument checks: the rule of its launch table (``launch()`` in
     ``csrc/convnext_block.cu``). On the card :func:`k1_tile` asks the
     library, and ``chip_smoke.py`` checks that the two agree."""
     return 128 if c <= 128 else 64 if c <= 384 else 32
@@ -291,8 +294,8 @@ def lab_variant(name: str, x: torch.Tensor, taps: torch.Tensor, w1: torch.Tensor
     """Variant ``name`` of the lab on x bf16 ``[B, H, W, C]`` with taps
     ``[7, 7, C]`` fp32, w1 ``[C, 4C]`` and w2 ``[4C, C]`` bf16 (contiguous).
     CUDA tensor: one launch at tile ``tm`` (0: K1's; else one of
-    :func:`legal_tiles`), or raises; ``full`` at K1's tile is K1's
-    ``cnb_forward``, fed ``zeros`` (an fp32 zero vector of at least 4C
+    :func:`legal_tiles`), or raises; ``full`` at K1's tile is K1's first
+    design's ``cnb_forward_v0``, fed ``zeros`` (an fp32 zero vector of at least 4C
     values, made here when not given) as its biases. CPU tensor: the plain
     version."""
     check_variant_args(name, x)
@@ -313,7 +316,7 @@ def lab_variant(name: str, x: torch.Tensor, taps: torch.Tensor, w1: torch.Tensor
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         if phase == "full" and tm == k1_tile_pixels(c):
-            rc = k1._library().cnb_forward(
+            rc = k1._library().cnb_forward_v0(
                 x.data_ptr(), out.data_ptr(), None, taps.data_ptr(), bias, w1.data_ptr(), bias,
                 w2.data_ptr(), bias, b, h, w, c, LN_EPS, 1, stream)
         else:

@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (K1 in both forms, K2, K3, K4, the kernel lab K5)
-and its device-side NMS on the card.
+"""The port's CUDA kernels (K1 in both forms and both designs, K2, K3, K4,
+the kernel lab K5) and its device-side NMS on the card.
 
 Every test here carries the ``cuda`` marker and skips without a card. The
 file imports no JAX, because the GPU machine has none; run it there without
@@ -59,6 +59,51 @@ def test_kernel_matches_twin(dev, shape, dtype, tol):
     torch.cuda.synchronize()
     assert cnb.convnext_block.launches == before + 1
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("c", [48, 96, 192, 384])
+def test_hopper_design_matches_twin(dev, c):
+    """K1's route sends bf16 up to C = 384 to its Hopper design: both forms
+    against the twin at an odd shape (partial 8 x 8 tiles), two calls equal
+    bit for bit, the saving form's out equal to the inference form's, and its
+    y equal bit for bit to the first design's (phase 1 is the same code)."""
+    assert cnb.forward_route(torch.bfloat16, c)
+    assert not cnb.forward_route(torch.float32, c) and not cnb.forward_route(torch.bfloat16, 768)
+    args = block_args(12, 1, 13, 21, c, torch.bfloat16, dev)
+    before = cnb.convnext_block.launches, cnb.convnext_block_saving.launches
+    got = cnb.convnext_block(*args)
+    again = cnb.convnext_block(*args)
+    out, y = cnb.convnext_block_saving(*args)
+    want, want_y = cnb.convnext_block_plain_saving(*args)
+    _, v0_y = cnb.convnext_block_v0(*args, saving=True)
+    torch.cuda.synchronize()
+    assert (cnb.convnext_block.launches, cnb.convnext_block_saving.launches) == (
+        before[0] + 2, before[1] + 1)
+    torch.testing.assert_close(got.float(), want.float(), atol=3e-2, rtol=3e-2)
+    torch.testing.assert_close(y.float(), want_y.float(), atol=3e-2, rtol=3e-2)
+    assert torch.equal(got, again) and torch.equal(out, got) and torch.equal(y, v0_y)
+
+
+@pytest.mark.parametrize("shape,dtype,tol", [
+    ((1, 13, 21, 96), torch.bfloat16, 3e-2),
+    ((2, 10, 10, 384), torch.bfloat16, 3e-2),
+    ((1, 13, 21, 96), torch.float32, 1e-2),
+])
+def test_first_design_matches_twin(dev, shape, dtype, tol):
+    """K1's first design through its own entry (``convnext_block_v0``),
+    whatever the route, both forms, against the twin; one launch each on
+    its own count."""
+    args = block_args(13, *shape, dtype, dev)
+    before = (cnb.convnext_block_v0.launches, cnb.convnext_block.launches,
+              cnb.convnext_block_saving.launches)
+    got = cnb.convnext_block_v0(*args)
+    out, y = cnb.convnext_block_v0(*args, saving=True)
+    want, want_y = cnb.convnext_block_plain_saving(*args)
+    torch.cuda.synchronize()
+    assert (cnb.convnext_block_v0.launches, cnb.convnext_block.launches,
+            cnb.convnext_block_saving.launches) == (before[0] + 2, before[1], before[2])
+    for a, b in ((got, want), (out, want), (y, want_y)):
+        torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=tol)
 
 
 def test_kernel_raises_on_what_it_does_not_take(dev):
@@ -339,15 +384,16 @@ def test_lab_variants_match_plain(dev, c):
 
 @pytest.mark.parametrize("c", [48, 96, 384])
 def test_lab_full_is_k1(dev, c):
-    """The lab's ``full`` is K1: equal bit for bit to ``convnext_block`` with
-    zero biases, unit LN and unit gamma on the same operands; its tile is
-    K1's, and the CPU route's rule for K1's tile agrees with the library."""
+    """The lab's ``full`` is K1's first design, the design the lab cuts down:
+    equal bit for bit to ``convnext_block_v0`` with zero biases, unit LN and
+    unit gamma on the same operands; its tile is that design's, and the CPU
+    route's rule for the tile agrees with the library."""
     x, dw, w1, w2 = lab_tools.lab_inputs(2, 13, 21, c, device=dev)
     taps, w1k, w2k, zeros = lab_tools.fold(dw, w1, w2, c)
     ones = torch.ones(c, device=dev)
-    want = cnb.convnext_block(x, taps.permute(2, 0, 1).reshape(c, 1, 7, 7), zeros[:c], ones,
-                              zeros[:c], w1k.t().float(), zeros, w2k.t().float(), zeros[:c],
-                              ones)
+    want = cnb.convnext_block_v0(x, taps.permute(2, 0, 1).reshape(c, 1, 7, 7), zeros[:c], ones,
+                                 zeros[:c], w1k.t().float(), zeros, w2k.t().float(), zeros[:c],
+                                 ones)
     assert torch.equal(k5.lab_variant("full", x, taps, w1k, w2k), want)
     assert k5.lab_tile("full", c) == k5.k1_tile(c)
     assert k5.k1_tile(c)[0] == k5.k1_tile_pixels(c)
