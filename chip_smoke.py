@@ -83,9 +83,16 @@ is printed):
      (atol/rtol 3e-2) and fp32 (1e-2); then K3 (CUDA events, and its kernel
      alone under ``torch.profiler``), its plain version and cuDNN's
      depthwise convolution timed at the batch-8 stage shapes;
- 11. K4 against its plain version at the shapes of phase 6 and at batch 8 at
-     all four stages (K2's tolerances); then K4, its plain version and the
-     eager block's autograd backward timed at the batch-8 stage shapes;
+ 11. K4 against its plain version on both of its designs, its route (in
+     bf16 up to C = 384 K2's Hopper pipeline under V1) and its first design
+     (``convnext_block_bwd_v1_v0``), at the shapes of phase 6 and at batch 8
+     at all four stages (K2's tolerances); two calls of the route equal bit
+     for bit; both wrappers refuse a cotangent of another dtype or layout;
+     then "[k4-time]": the route, the first design, the plain version and
+     the eager block's autograd backward timed in turns at the batch-8 stage
+     shapes; "[k4-split]": K4's device time per launch by kernel at the
+     batch-8 shapes of stages 0-2 (at most five launches per call on the
+     route), the first design's beside it;
  12. "[block-fwdbwd]", one block's forward plus backward at the batch-8
      stage shapes, bf16, x and every parameter requiring grad, under the
      five routes ``"ref"``, eager autograd, ``"fused"``, ``"fused_v1"`` and
@@ -873,29 +880,57 @@ def phase_dwconv(k3, dev, gen):
 
 
 def phase_bwd_v1(cnb, k2, dev, gen):
-    """K4 against its plain version (batch 2 at the stage shapes, the odd
-    shape and C=48, bf16 and fp32; the batch-8 stage shapes in bf16), then
-    K4, its plain version and the eager block's autograd backward timed at
-    the batch-8 stage shapes."""
+    """K4 against its plain version on both designs: its route (in bf16 up to
+    C = 384 K2's Hopper pipeline under V1) and its first design through
+    ``convnext_block_bwd_v1_v0`` (batch 2 at the stage shapes, the odd shape
+    and C=48, bf16 and fp32; batch 1 at 13x11 at each Hopper width; the
+    batch-8 stage shapes in bf16); two calls of the route equal bit for bit;
+    both wrappers raise on what they do not take. Then "[k4-time]": the
+    route, the first design, the plain version and the eager block's
+    autograd backward timed in turns at the batch-8 stage shapes."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    for c in (48, 96, 192, 384, 768):  # the Python rule that picks the pointers, as the library's
+        want = bool(k2._library().cnb_backward_v1_route(c, 1))
+        if k2.bwd_v1_route(torch.bfloat16, c) != want or want != (c <= 384):
+            raise RuntimeError(f"[k4] route at C={c}: library {want}")
+        if k2.bwd_v1_route(torch.float32, c) or k2._library().cnb_backward_v1_route(c, 0):
+            raise RuntimeError(f"[k4] fp32 at C={c} must run the first design")
     shapes = [(2, s, s, c) for c, s, _ in STAGES] + [(1, 13, 21, 96), (3, 7, 5, 48)]
     cases = [(shape, dt, tol) for shape in shapes
              for dt, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, FP32_TOL))]
+    cases += [((1, 13, 11, c), torch.bfloat16, BF16_TOL) for c in (48, 96, 192, 384)]
     cases += [((TRAIN_BATCH, s, s, c), torch.bfloat16, BF16_TOL) for c, s, _ in STAGES]
     err_dx, err_scale = 0.0, 0.0
     for shape, dt, tol in cases:
         x, *params = block_args(gen, *shape, dt, dev)
         g = torch.randn(shape, generator=gen, device=dev).to(dt)
         got = k2.convnext_block_bwd_v1(x, g, *params)
+        again = k2.convnext_block_bwd_v1(x, g, *params)
+        v0 = k2.convnext_block_bwd_v1_v0(x, g, *params)
         want = k2.convnext_block_bwd_v1_plain(x, g, *params)
         torch.cuda.synchronize()
-        e_dx, e_sc = check_grads(f"K4 {shape} {dt}", got, want, tol)
+        route = "Hopper pipeline" if k2.bwd_v1_route(dt, shape[-1]) else "first design"
+        e_dx, e_sc = check_grads(f"K4 {shape} {dt} ({route})", got, want, tol)
+        v_dx, v_sc = check_grads(f"K4 first design {shape} {dt}", v0, want, tol)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise RuntimeError(f"K4 {shape} {dt}: two calls differ")
         if dt == torch.bfloat16:
             err_dx, err_scale = max(err_dx, e_dx), max(err_scale, e_sc)
-        log(f"[k4] {shape} {str(dt):15s} dx {e_dx:.3e}, gradients {e_sc:.3e} of scale "
-            f"(tol {tol})")
-        del got, want
+        log(f"[k4] {shape} {str(dt):15s} {route}: dx {e_dx:.3e}, gradients {e_sc:.3e} of scale; "
+            f"first design dx {v_dx:.3e}, gradients {v_sc:.3e} (tol {tol}); two calls equal")
+        del got, again, v0, want
+    x, *params = block_args(gen, 1, 8, 8, 32, torch.bfloat16, dev)
+    before = k2.convnext_block_bwd_v1.launches, k2.convnext_block_bwd_v1_v0.launches
+    for fn in (k2.convnext_block_bwd_v1, k2.convnext_block_bwd_v1_v0):
+        for bad in (torch.zeros_like(x).float(), torch.zeros_like(x).transpose(1, 2)):
+            try:
+                fn(x, bad, *params)
+            except ValueError:
+                continue
+            raise RuntimeError(f"{fn.__name__} took a cotangent it must refuse")
+    if (k2.convnext_block_bwd_v1.launches, k2.convnext_block_bwd_v1_v0.launches) != before:
+        raise RuntimeError("[k4] a refused call launched")
 
     per_stage = []
     for c, s, depth in STAGES:
@@ -905,15 +940,59 @@ def phase_bwd_v1(cnb, k2, dev, gen):
         leaves = [t.detach().requires_grad_() for t in (x, *params)]
         ref_out = cnb.convnext_block_ref(*leaves)
         t_k4 = cuda_ms(lambda: k2.convnext_block_bwd_v1(x, g, *params))
+        t_v0 = cuda_ms(lambda: k2.convnext_block_bwd_v1_v0(x, g, *params))
         t_plain = cuda_ms(lambda: k2.convnext_block_bwd_v1_plain(x, g, *params), iters=5)
         t_eager = cuda_ms(lambda: torch.autograd.grad(ref_out, leaves, g, retain_graph=True))
+        t_v0b = cuda_ms(lambda: k2.convnext_block_bwd_v1_v0(x, g, *params))
         t_k4b = cuda_ms(lambda: k2.convnext_block_bwd_v1(x, g, *params))
         b_ms, b_by = k4_bound(*shape)
-        per_stage.append({"shape": list(shape), "ms": (t_k4 + t_k4b) / 2, "plain_ms": t_plain,
+        per_stage.append({"shape": list(shape), "ms": (t_k4 + t_k4b) / 2,
+                          "first_design_ms": (t_v0 + t_v0b) / 2, "plain_ms": t_plain,
                           "eager_bwd_ms": t_eager, "bound_ms": b_ms, "bound_by": b_by})
-        log(f"[k4-time] {shape} bf16: K4 {t_k4:.4f}/{t_k4b:.4f} ms (bound {b_ms:.4f} ms, "
-            f"{b_by}), plain {t_plain:.4f} ms, eager autograd backward {t_eager:.4f} ms")
+        route = "Hopper pipeline" if k2.bwd_v1_route(torch.bfloat16, c) else "first design"
+        log(f"[k4-time] {shape} bf16: K4 ({route}) {t_k4:.4f}/{t_k4b:.4f} ms, first design "
+            f"{t_v0:.4f}/{t_v0b:.4f} ms (bound {b_ms:.4f} ms, {b_by}), plain {t_plain:.4f} ms, "
+            f"eager autograd backward {t_eager:.4f} ms")
+        del x, params, g, leaves, ref_out
     return err_dx, err_scale, per_stage
+
+
+def k4_kernel(name: str) -> bool:
+    """Whether a kernel of a K4 call is one of K4's own (the recompute
+    ``cnb_dwconv7_kernel``, the Hopper passes ``k2_*``, the first design's
+    ``cnb_bwd_*``), not one of the wrapper's copies of the parameters."""
+    return "k2_" in name or "cnb_" in name
+
+
+def phase_k4_split(k2, dev, gen):
+    """"[k4-split]": K4's device time per launch, by kernel, at the three
+    batch-8 stage shapes of its Hopper pipeline: the route (at most five
+    launches of its kernels per call) and, beside it, the first design in
+    bf16; the wrapper's parameter copies apart."""
+    out = []
+    for c, s, _ in STAGES[:3]:
+        shape = (TRAIN_BATCH, s, s, c)
+        x, *params = block_args(gen, *shape, torch.bfloat16, dev)
+        g = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        for design, fn in (("route", k2.convnext_block_bwd_v1),
+                           ("first design", k2.convnext_block_bwd_v1_v0)):
+            split = kernel_split(lambda: fn(x, g, *params))
+            ours = {k: v for k, v in split.items() if k4_kernel(k)}
+            total = sum(v["ms"] for v in ours.values())
+            launches = sum(v["launches"] for v in ours.values())
+            copies = sum(v["ms"] for k, v in split.items() if k not in ours)
+            out.append({"shape": list(shape), "design": design, "device_ms": total,
+                        "launches_per_call": launches, "operand_copies_ms": copies,
+                        "by_kernel": split})
+            if design == "route" and not 0 < launches <= K2_MAX_LAUNCHES:
+                raise RuntimeError(f"[k4-split] {shape}: {launches:g} launches per call, want "
+                                   f"1 to {K2_MAX_LAUNCHES}")
+            log(f"[k4-split] {shape} bf16 {design}: {launches:g} launches, {total:.4f} ms device "
+                f"time per call (the wrapper's parameter copies {copies:.4f} ms more); "
+                + "; ".join(f"{k} x{v['launches']} ({v['recorded']:g} recorded) {v['ms']:.4f} ms"
+                            for k, v in ours.items()))
+        del x, params, g
+    return out
 
 
 # The five block fwd+bwd routes of the per-stage phase: the autograd routes
@@ -1384,8 +1463,8 @@ def timed_build(name):
     return path, report, time.perf_counter() - t0
 
 
-PHASES = ("kernel", "model", "infer-cli", "k2", "k2-split", "train", "k3", "k4", "fwdbwd",
-          "lab")
+PHASES = ("kernel", "model", "infer-cli", "k2", "k2-split", "train", "k3", "k4", "k4-split",
+          "fwdbwd", "lab")
 
 
 def main(argv=None) -> int:
@@ -1433,7 +1512,8 @@ def main(argv=None) -> int:
         for saving in (False, True):
             log(f"[build] K1 Hopper design at C={c}{' (saving form)' if saving else ''}: "
                 f"{json.dumps(cnb.hopper_tile(c, saving))}")
-        log(f"[build] K2 row pass at C={c}: {json.dumps(k2.row_pass_config(c))}")
+        log(f"[build] K2 row pass at C={c}: {json.dumps(k2.row_pass_config(c))}; K4's: "
+            f"{json.dumps(k2.row_pass_config(c, v1=True))}")
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     r = {}  # each phase's result, by phase
@@ -1452,6 +1532,7 @@ def main(argv=None) -> int:
         ("train", lambda: phase_train(cnb, k2, dev, gen)),
         ("k3", lambda: phase_dwconv(k3, dev, gen)),
         ("k4", lambda: phase_bwd_v1(cnb, k2, dev, gen)),
+        ("k4-split", lambda: phase_k4_split(k2, dev, gen)),
         ("fwdbwd", lambda: phase_block_fwdbwd(cnb, k2, k3, dev, gen)),
         ("lab", lambda: phase_lab(cnb, dev)),
     )
@@ -1473,6 +1554,7 @@ def main(argv=None) -> int:
     _, n_saving, n_bwd = r["train"]
     err_k3, k3_stages = r["k3"]
     err_k4_dx, err_k4_scale, k4_stages = r["k4"]
+    k4_split = r["k4-split"]
     fb_launches, fb_table, fb_totals, fb_grad_err = r["fwdbwd"]
     lab_entry = r["lab"]
 
@@ -1517,8 +1599,10 @@ def main(argv=None) -> int:
          "replaces": "multitask_bonetumor_yolo_tpu/ops/pallas/convnext_block_bwd.py:43",
          "launches": fb_launches["fused_v1"][3], "max_abs_err": err_k4_dx,
          "grad_err_of_scale": err_k4_scale,
-         **path_totals(k4_stages, 1, ("ms", "plain_ms", "eager_bwd_ms")),
-         "per_stage": k4_stages},
+         **path_totals(k4_stages, 1, ("ms", "first_design_ms", "plain_ms", "eager_bwd_ms")),
+         "launches_per_call": max(r["launches_per_call"] for r in k4_split
+                                  if r["design"] == "route"),
+         "per_stage": k4_stages, "split": k4_split},
         {"name": "kernel_lab", **common,
          "source": "multitask_bonetumor_yolo_tpu_torch/csrc/kernel_lab.cu",
          "replaces": "scripts/kernel_lab.py:37", **lab_entry},

@@ -84,7 +84,7 @@
 //     dt(d_h) and dt(a) written once and read twice, d_z in fp32).
 
 // Kernel K4, the recompute-form backward (cnb_backward_v1), is the same
-// pipeline under the template flag V1. It replaces the TPU kernel
+// code under the template flag V1. It replaces the TPU kernel
 // multitask_bonetumor_yolo_tpu/ops/pallas/convnext_block_bwd.py::_kernel
 // (driven by fused_block_bwd), which takes no saved y and whose math differs:
 //
@@ -97,13 +97,38 @@
 // The TPU kernel recomputes y per row chunk from a +-6-row x halo (and
 // carries a +-3-row g halo) because its sequential grid sums the gradients
 // chunk by chunk; on Hopper the CTAs run in parallel, so K4 recomputes y for
-// the whole tensor first, into an fp32 workspace, with the depthwise kernel
-// of csrc/dwconv.cuh (K3's device code, plus the bias), and then runs the
-// passes above: prep reads the fp32 y; the hidden product takes z2d and
-// dt(do) with the raw weights (the host passes them in the folded weights'
-// slots); the channel product computes two products (d_z2, o) and d_z in
-// its epilogue; d_y reads the fp32 y. Its bound is K2's products plus a
-// third 7x7 pass (the recompute of y): at batch 8 the products still bound it.
+// the whole tensor first, into an fp32 workspace ([P, C], 78.6 MB at batch
+// 8 and 160^2 x 96), with the depthwise kernel of csrc/dwconv.cuh (K3's
+// device code, plus the bias). Its bound is K2's products plus a third 7x7
+// pass (the recompute of y): at batch 8 the products still bound it.
+//
+// K4 in bf16 up to C = 384 (cnb_backward_v1_route, K2's rule) is K2's Hopper
+// pipeline under V1, five launches: the recompute, then K2's row pass with
+// v1's operands (k2_row_kernel<CP, NC, true>: LN moments and z from the
+// fp32 y, read from device memory by four threads per pixel and again for
+// z, since an fp32 tile would double the 48 KB dt(z) tile at C = 384; the A
+// tiles hold z2d and dt(g * gamma), the B slots the raw dt(w1), dt(w2)^T and
+// b1; d_y and sum d_z2 z from the fp32 z, y read a third time), K2's weight
+// pass, spatial pass and reduction unchanged. The row pass keeps K2's shared
+// memory layout and CTAs per SM (cnb_backward_row_config on the H100: 2 /
+// 2 / 1 / 1 CTAs per SM at CP = 48 / 96 / 192 / 384, a launch asking 67.5
+// / 105.5 / 149.5 / 212 KiB). ptxas (sm_90a, CUDA 12.8): k2_row_kernel<CP,
+// NC, true> takes 126 / 128 / 189 / 255 registers, no spills but 52 bytes
+// at CP = 384 (the epilogue's fp32 y loads beside 96 d_z2 accumulators a
+// thread; that pass is no slower than K2's, 0.474 against 0.476 ms at batch
+// 8); K2's own row pass 123 / 128 / 205 / 254, no spills; no wgmma
+// serialised (C7514). The reduction takes K2's derived forms, dw2 = gamma *
+// (dt(g)^T dt(a)) and dgamma = sum_j dt(w2) W + b2 sum g, in place of v1's
+// dt(do)^T dt(a) and sum g * o: the same function up to rounding. dw2
+// scales the fp32 sum of dt(g) dt(a) by gamma where v1 rounds g * gamma to
+// bf16 before the product; dgamma sums the same fp32 products dt(g) dt(a)
+// dt(w2) in another order (over the pixels first). No atomics: the same
+// bits every run.
+// fp32, C = 768 and the "before" (cnb_backward_v1_v0) run the first design:
+// prep reads the fp32 y; the hidden product takes z2d and dt(do) with the
+// raw weights (the host passes them in the folded weights' slots); the
+// channel product computes two products (d_z2, o) and d_z in its epilogue;
+// d_y reads the fp32 y; sixteen launches and the recompute.
 
 #include <type_traits>
 
@@ -782,6 +807,7 @@ __device__ __forceinline__ float bf(bf16 v) { return __bfloat162float(v); }
 // ---- row pass -------------------------------------------------------------
 struct RowArgs {
   const bf16 *y, *g, *w1ft, *w2f, *w1t;  // [P,C], [P,C], [4C,C], [4C,C], [C,4C]
+  const float* yf;                       // V1: the recomputed y [P,C] fp32 (y unused)
   const float *b1f, *gamma, *lns, *lnb;
   bf16 *dhT, *aT, *z2T, *gT;  // [4C,Pp], [4C,Pp], [C,Pp], [C,Pp]
   float* dy;                  // [P,C]
@@ -810,6 +836,28 @@ struct RowSmem {
   static_assert(W1 + 2 * size_t(CP) * TM * 2 <= DH, "prologue staging overflows");
   static_assert(W1 + size_t(2) * 4 * (CP / 2) * 2 * 4 <= DH, "epilogue staging overflows");
 };
+
+// y at pixel p0 + m, channels c0 .. c0 + 7 (C > c0), as fp32: K2 from the
+// bf16 tile `ys` (zero past P), V1 from the fp32 y in device memory
+template <bool V1>
+__device__ __forceinline__ void y_chunk(const RowArgs& a, const unsigned char* ys, int p0, int m,
+                                        int c0, float (&e)[8]) {
+  if constexpr (V1) {
+    float4 v0 = make_float4(0.f, 0.f, 0.f, 0.f), v1 = v0;
+    if (p0 + m < a.P) {
+      const float4* src = reinterpret_cast<const float4*>(a.yf + size_t(p0 + m) * a.C + c0);
+      v0 = __ldg(src);
+      v1 = __ldg(src + 1);
+    }
+    e[0] = v0.x; e[1] = v0.y; e[2] = v0.z; e[3] = v0.w;
+    e[4] = v1.x; e[5] = v1.y; e[6] = v1.z; e[7] = v1.w;
+  } else {
+    const uint4 v = *reinterpret_cast<const uint4*>(ys + sm90::swz(TM, m, c0));
+    const bf16* b = reinterpret_cast<const bf16*>(&v);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) e[i] = bf(b[i]);
+  }
+}
 
 template <int CP, int NC>
 __device__ __forceinline__ void row_load_hidden(const RowArgs& a, unsigned char* S, int j0) {
@@ -845,7 +893,13 @@ __device__ __forceinline__ void row_load_dz2(const RowArgs& a, unsigned char* S,
 // width (channels past C are zero). The parameter vectors are read through
 // __ldg: read-only, so the compiler may keep those loads in flight across
 // the shared-memory stores.
-template <int CP, int NC>
+// V1 (K4) differs only where v1's math does: the moments and z come from the
+// fp32 y in device memory (read three times: the moments, z, the epilogue;
+// the second and third reads find it in L2), the A tiles hold z2d = dt(z *
+// lns + lnb) and dt(g * gamma) (the host passes dt(w1), dt(w2)^T and b1 in
+// the slots of w1'^T, w2' and b1'), g stays dt(g) for the weight pass, and
+// db2 sums g * gamma before its rounding.
+template <int CP, int NC, bool V1>
 __global__ void __launch_bounds__(RT, CP <= 96 ? 2 : 1) k2_row_kernel(const RowArgs a) {
   using L = RowSmem<CP, NC>;
   constexpr int NH = NC / 2, ND = CP / 2, KS = CP / 16, KD = NC / 16, CH = CP / 8;
@@ -861,12 +915,12 @@ __global__ void __launch_bounds__(RT, CP <= 96 ? 2 : 1) k2_row_kernel(const RowA
   const int C4 = 4 * C;
 
   // y and g of the tile into the two A tiles by cp.async (zero past P and
-  // past C); g stays there, y becomes dt(z) in place
-  for (int i = tid; i < 2 * TM * CH; i += RT) {
-    const int which = i / (TM * CH), m = (i / CH) % TM, c0 = (i % CH) * 8, p = p0 + m;
+  // past C); g stays there, y becomes dt(z) in place. V1: g only.
+  for (int i = tid; i < (V1 ? 1 : 2) * TM * CH; i += RT) {
+    const int which = V1 ? 1 : i / (TM * CH), m = (i / CH) % TM, c0 = (i % CH) * 8, p = p0 + m;
     const bool in = p < P && c0 < C;
     const bf16* src = (which ? a.g : a.y) + size_t(p) * C + c0;
-    cp_async16_zfill(S + (which ? L::G : L::Z) + sm90::swz(TM, m, c0), in ? src : a.y, in);
+    cp_async16_zfill(S + (which ? L::G : L::Z) + sm90::swz(TM, m, c0), in ? src : a.g, in);
   }
   cp_async_commit();
   cp_async_wait<0>();
@@ -878,13 +932,12 @@ __global__ void __launch_bounds__(RT, CP <= 96 ? 2 : 1) k2_row_kernel(const RowA
     const int m = tid >> 2, part = tid & 3;
     float s = 0.f, s2 = 0.f;
     for (int ch = part; ch < C / 8; ch += 4) {
-      const uint4 v = *reinterpret_cast<const uint4*>(S + L::Z + sm90::swz(TM, m, ch * 8));
-      const bf16* e = reinterpret_cast<const bf16*>(&v);
+      float e[8];
+      y_chunk<V1>(a, S + L::Z, p0, m, ch * 8, e);
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
-        const float f = bf(e[i]);
-        s += f;
-        s2 = fmaf(f, f, s2);
+        s += e[i];
+        s2 = fmaf(e[i], e[i], s2);
       }
     }
 #pragma unroll
@@ -907,25 +960,33 @@ __global__ void __launch_bounds__(RT, CP <= 96 ? 2 : 1) k2_row_kernel(const RowA
   bf16* st_g = st_z2 + size_t(C) * TM;
   for (int i = tid; i < TM * CH; i += RT) {  // lanes along the pixels: no bank conflicts
     const int m = i % TM, c0 = (i / TM) * 8;
-    if (c0 >= C) continue;  // zero already
     uint4* zp = reinterpret_cast<uint4*>(S + L::Z + sm90::swz(TM, m, c0));
-    const uint4 yv = *zp;
-    const uint4 gv = *reinterpret_cast<const uint4*>(S + L::G + sm90::swz(TM, m, c0));
-    const bf16* ye = reinterpret_cast<const bf16*>(&yv);
+    if (c0 >= C) {  // zero already (V1 loaded no y into the tile)
+      if constexpr (V1) *zp = make_uint4(0u, 0u, 0u, 0u);
+      continue;
+    }
+    uint4* gp = reinterpret_cast<uint4*>(S + L::G + sm90::swz(TM, m, c0));
+    const uint4 gv = *gp;
     const bf16* ge = reinterpret_cast<const bf16*>(&gv);
-    uint4 zv;
+    float yv[8];
+    y_chunk<V1>(a, S + L::Z, p0, m, c0, yv);
+    uint4 zv, dv;
     bf16* ze = reinterpret_cast<bf16*>(&zv);
+    bf16* de = reinterpret_cast<bf16*>(&dv);
     const bool in = p0 + m < P;
     const float mu = s_mean[m], r = s_rstd[m];
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
       const int c = c0 + e;
-      const float z = in ? (bf(ye[e]) - mu) * r : 0.f;
-      ze[e] = __float2bfloat16(z);
-      st_z2[c * TM + m] = __float2bfloat16(in ? z * __ldg(a.lns + c) + __ldg(a.lnb + c) : 0.f);
+      const float z = in ? (yv[e] - mu) * r : 0.f;
+      const bf16 z2 = __float2bfloat16(in ? z * __ldg(a.lns + c) + __ldg(a.lnb + c) : 0.f);
+      ze[e] = V1 ? z2 : __float2bfloat16(z);
+      st_z2[c * TM + m] = z2;
       st_g[c * TM + m] = ge[e];
+      if constexpr (V1) de[e] = __float2bfloat16(bf(ge[e]) * __ldg(a.gamma + c));
     }
     *zp = zv;
+    if constexpr (V1) *gp = dv;  // d_a's operand dt(g * gamma); st_g keeps dt(g)
   }
   __syncthreads();
   for (int i = tid; i < 2 * C * 8; i += RT) {
@@ -933,11 +994,12 @@ __global__ void __launch_bounds__(RT, CP <= 96 ? 2 : 1) k2_row_kernel(const RowA
     const uint4 v = *reinterpret_cast<const uint4*>((which ? st_g : st_z2) + c * TM + q * 8);
     *reinterpret_cast<uint4*>((which ? a.gT : a.z2T) + size_t(c) * a.Pp + p0 + q * 8) = v;
   }
-  for (int c = warp; c < C; c += RT / 32) {  // db2 = sum dt(g * gamma), and sum g
+  for (int c = warp; c < C; c += RT / 32) {  // db2 = sum dt(g * gamma) (V1: sum g * gamma), and sum g
     const float gm = __ldg(a.gamma + c);
     const float g0 = bf(st_g[c * TM + lane]), g1 = bf(st_g[c * TM + lane + 32]);
     float s_g = g0 + g1;
-    float s_do = bf(__float2bfloat16(g0 * gm)) + bf(__float2bfloat16(g1 * gm));
+    float s_do = V1 ? g0 * gm + g1 * gm
+                    : bf(__float2bfloat16(g0 * gm)) + bf(__float2bfloat16(g1 * gm));
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) {
       s_g += __shfl_xor_sync(0xffffffffu, s_g, o);
@@ -1050,15 +1112,18 @@ __global__ void __launch_bounds__(RT, CP <= 96 ? 2 : 1) k2_row_kernel(const RowA
     if (k + 1 < nchunk) row_load_dz2<CP, NC>(a, S, j0 + NC);
     cp_async_commit();
   }
-  // y again, into the free dt(z) tile, for the fp32 z of the epilogue
-  for (int i = tid; i < TM * CH; i += RT) {
-    const int m = i / CH, c0 = (i % CH) * 8, p = p0 + m;
-    const bool in = p < P && c0 < C;
-    cp_async16_zfill(S + L::Z + sm90::swz(TM, m, c0), in ? a.y + size_t(p) * C + c0 : a.y, in);
+  // y again, into the free dt(z) tile, for the fp32 z of the epilogue (V1
+  // reads its fp32 y from device memory)
+  if constexpr (!V1) {
+    for (int i = tid; i < TM * CH; i += RT) {
+      const int m = i / CH, c0 = (i % CH) * 8, p = p0 + m;
+      const bool in = p < P && c0 < C;
+      cp_async16_zfill(S + L::Z + sm90::swz(TM, m, c0), in ? a.y + size_t(p) * C + c0 : a.y, in);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
   }
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
 
   // d_z = lns * d_z2; d_y = r (d_z - mean(d_z) - z mean(d_z z)); column
   // partials of dln_scale = sum d_z2 z and dln_bias = sum d_z2
@@ -1075,11 +1140,16 @@ __global__ void __launch_bounds__(RT, CP <= 96 ? 2 : 1) k2_row_kernel(const RowA
   }
   // z of this thread's elements at row row0 + 8 hv and columns c, c + 1
   auto z_at = [&](int hv, int c, float* z) {
-    const __nv_bfloat162 yy = *reinterpret_cast<const __nv_bfloat162*>(
-        S + L::Z + sm90::swz(TM, row0 + 8 * hv, c));
     const bool in = rin[hv] && c < C;
-    z[0] = in ? (__low2float(yy) - mu[hv]) * rsd[hv] : 0.f;
-    z[1] = in ? (__high2float(yy) - mu[hv]) * rsd[hv] : 0.f;
+    float2 yy = make_float2(0.f, 0.f);
+    if constexpr (V1) {
+      if (in) yy = __ldg(reinterpret_cast<const float2*>(a.yf + size_t(p0 + row0 + 8 * hv) * C + c));
+    } else {
+      yy = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+          S + L::Z + sm90::swz(TM, row0 + 8 * hv, c)));
+    }
+    z[0] = in ? (yy.x - mu[hv]) * rsd[hv] : 0.f;
+    z[1] = in ? (yy.y - mu[hv]) * rsd[hv] : 0.f;
   };
   float rs1[2] = {0.f, 0.f}, rs2[2] = {0.f, 0.f};
 #pragma unroll
@@ -1347,7 +1417,7 @@ struct Plan {
   size_t total;
 };
 
-inline Plan make_plan(int B, int H, int W, int C) {
+inline Plan make_plan(int B, int H, int W, int C, bool v1) {
   Plan pl{};
   pl.P = B * H * W;
   pl.C = C;
@@ -1377,7 +1447,7 @@ inline Plan make_plan(int B, int H, int W, int C) {
       size_t(pl.nsl) * c * f,               // 11 dw-bias partials
       2 * size_t(pl.S) * c * 4 * c * f,     // 12 weight-gradient partials [2][S][C][4C]
       size_t(pl.S) * cdiv(4 * C, WM) * c * f,  // 13 dgamma partials [S][4C / 128][C]
-      0};
+      v1 ? P * c * f : 0};                      // 14 y recomputed (fp32; V1 only)
   size_t o = 0;
   for (int i = 0; i < 15; ++i) {
     pl.off[i] = o;
@@ -1388,28 +1458,29 @@ inline Plan make_plan(int B, int H, int W, int C) {
 }
 
 // the row pass's shared memory per CTA and its CTAs per SM at width C
-template <int CP, int NC>
+template <int CP, int NC, bool V1>
 int row_occupancy(int* smem, int* ctas) {
   const int bytes = int(RowSmem<CP, NC>::BYTES) + 1024;
-  auto kern = k2_row_kernel<CP, NC>;
+  auto kern = k2_row_kernel<CP, NC, V1>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return int(e);
   *smem = bytes;
   return int(cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas, kern, RT, bytes));
 }
 
-inline int row_config(int C, int* smem, int* ctas, int* nc) {
+template <bool V1>
+int row_config(int C, int* smem, int* ctas, int* nc) {
   *nc = C <= 192 ? 64 : 32;
-  if (C <= 48) return row_occupancy<48, 64>(smem, ctas);
-  if (C <= 96) return row_occupancy<96, 64>(smem, ctas);
-  if (C <= 192) return row_occupancy<192, 64>(smem, ctas);
-  return row_occupancy<384, 32>(smem, ctas);
+  if (C <= 48) return row_occupancy<48, 64, V1>(smem, ctas);
+  if (C <= 96) return row_occupancy<96, 64, V1>(smem, ctas);
+  if (C <= 192) return row_occupancy<192, 64, V1>(smem, ctas);
+  return row_occupancy<384, 32, V1>(smem, ctas);
 }
 
-template <int CP, int NC>
+template <int CP, int NC, bool V1>
 int launch_row(const RowArgs& ra, int tiles, cudaStream_t s) {
   const int bytes = int(RowSmem<CP, NC>::BYTES) + 1024;
-  auto kern = k2_row_kernel<CP, NC>;
+  auto kern = k2_row_kernel<CP, NC, V1>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return int(e);
   kern<<<tiles, RT, bytes, s>>>(ra);
@@ -1420,9 +1491,13 @@ int launch_row(const RowArgs& ra, int tiles, cudaStream_t s) {
 // dt(w2') [4C][C], w1t = dt(w1)^T [C][4C], w2 (fp32, raw) [C][4C], b1f [4C],
 // b2, gamma, lns, lnb [C]; then the outputs dx, ddw [49][C], ddwb, dlns,
 // dlnb, dw1 [4C][C], db1, dw2 [C][4C], db2, dgam.
+// V1 (K4) reads the same slots with y unused, the raw dt(w1) [4C][C] in
+// w1ft's, dt(w2)^T [4C][C] in w2f's and the raw b1 in b1f's, and a 24th
+// pointer, the dw bias [C]; its first launch recomputes y in fp32.
+template <bool V1>
 int backward(const void* const* p, void* ws, int B, int H, int W, int C, float eps,
              cudaStream_t s) {
-  const Plan pl = make_plan(B, H, W, C);
+  const Plan pl = make_plan(B, H, W, C, V1);
   auto in = [&](int i) { return static_cast<const bf16*>(p[i]); };
   auto inf = [&](int i) { return static_cast<const float*>(p[i]); };
   auto outf = [&](int i) { return static_cast<float*>(const_cast<void*>(p[i])); };
@@ -1431,16 +1506,20 @@ int backward(const void* const* p, void* ws, int B, int H, int W, int C, float e
   auto wf = [&](int i) { return reinterpret_cast<float*>(w + pl.off[i]); };
   int rc;
 
+  if constexpr (V1) {  // y = dwconv7x7(x) + b_dw in fp32 (K3's device code)
+    if ((rc = dwc::dwconv7_launch<bf16>(in(0), inf(3), inf(23), wf(14), B, H, W, C, s))) return rc;
+  }
   RowArgs ra{};
   ra.y = in(1); ra.g = in(2); ra.w1ft = in(4); ra.w2f = in(5); ra.w1t = in(6);
+  ra.yf = V1 ? wf(14) : nullptr;
   ra.b1f = inf(8); ra.gamma = inf(10); ra.lns = inf(11); ra.lnb = inf(12);
   ra.dhT = wb(0); ra.aT = wb(1); ra.z2T = wb(2); ra.gT = wb(3); ra.dy = wf(4);
   ra.db1p = wf(5); ra.db2p = wf(6); ra.sgp = wf(7); ra.dlnsp = wf(8); ra.dlnbp = wf(9);
   ra.P = pl.P; ra.Pp = pl.Pp; ra.C = C; ra.eps = eps;
-  if (C <= 48) rc = launch_row<48, 64>(ra, pl.tiles, s);
-  else if (C <= 96) rc = launch_row<96, 64>(ra, pl.tiles, s);
-  else if (C <= 192) rc = launch_row<192, 64>(ra, pl.tiles, s);
-  else rc = launch_row<384, 32>(ra, pl.tiles, s);
+  if (C <= 48) rc = launch_row<48, 64, V1>(ra, pl.tiles, s);
+  else if (C <= 96) rc = launch_row<96, 64, V1>(ra, pl.tiles, s);
+  else if (C <= 192) rc = launch_row<192, 64, V1>(ra, pl.tiles, s);
+  else rc = launch_row<384, 32, V1>(ra, pl.tiles, s);
   if (rc) return rc;
 
   {
@@ -1499,13 +1578,16 @@ inline bool bad_shape(int B, int H, int W, int C) {
   return B <= 0 || H <= 0 || W <= 0 || C <= 0 || C % 16 != 0 || C > MAXC;
 }
 
-// K2's bf16 calls up to C = 384 run the Hopper pipeline (namespace k2h); fp32
-// and the wider bf16 calls, the first design
+// K2's and K4's bf16 calls up to C = 384 run the Hopper pipeline (namespace
+// k2h); fp32 and the wider bf16 calls, the first design
 inline bool hopper_route(int C, int is_bf16) { return is_bf16 && C <= k2h::HMAXC; }
 
-inline long long workspace(int B, int H, int W, int C, int is_bf16, bool v1) {
+// the workspace of K2 (v1 false) or K4 at this shape, on its route or
+// (first_design) on the first design
+inline long long workspace(int B, int H, int W, int C, int is_bf16, bool v1, bool first_design) {
   if (bad_shape(B, H, W, C)) return -1;
-  if (!v1 && hopper_route(C, is_bf16)) return (long long)k2h::make_plan(B, H, W, C).total;
+  if (!first_design && hopper_route(C, is_bf16))
+    return (long long)k2h::make_plan(B, H, W, C, v1).total;
   return (long long)(is_bf16 ? make_plan<__nv_bfloat16>(B, H, W, C, v1).total
                              : make_plan<float>(B, H, W, C, v1).total);
 }
@@ -1516,7 +1598,7 @@ extern "C" {
 
 // Bytes of device workspace cnb_backward needs for this shape.
 long long cnb_backward_workspace(int B, int H, int W, int C, int is_bf16) {
-  return workspace(B, H, W, C, is_bf16, false);
+  return workspace(B, H, W, C, is_bf16, false, false);
 }
 
 // ptrs: in bf16 up to C = 384 the 23 pointers listed above k2h::backward,
@@ -1529,7 +1611,7 @@ int cnb_backward(const void* const* ptrs, void* ws, int B, int H, int W, int C, 
                  int is_bf16, void* stream) {
   if (bad_shape(B, H, W, C)) return int(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
-  if (hopper_route(C, is_bf16)) return k2h::backward(ptrs, ws, B, H, W, C, eps, s);
+  if (hopper_route(C, is_bf16)) return k2h::backward<false>(ptrs, ws, B, H, W, C, eps, s);
   if (is_bf16) return backward<__nv_bfloat16, false>(ptrs, ws, B, H, W, C, eps, s);
   return backward<float, false>(ptrs, ws, B, H, W, C, eps, s);
 }
@@ -1538,23 +1620,41 @@ int cnb_backward(const void* const* ptrs, void* ws, int B, int H, int W, int C, 
 // its pointer list), 0 if they run the first design.
 int cnb_backward_route(int C, int is_bf16) { return int(hopper_route(C, is_bf16)); }
 
-// K2's Hopper row pass at width C (C <= 384): shared memory per CTA, CTAs
-// per SM and the hidden chunk NC; returns a CUDA error, or 0.
-int cnb_backward_row_config(int C, int* smem_bytes, int* ctas_per_sm, int* chunk) {
+// K2's (v1 = 0) or K4's Hopper row pass at width C (C <= 384): shared memory
+// per CTA, CTAs per SM and the hidden chunk NC; returns a CUDA error, or 0.
+int cnb_backward_row_config(int C, int v1, int* smem_bytes, int* ctas_per_sm, int* chunk) {
   if (C <= 0 || C % 16 != 0 || C > k2h::HMAXC) return int(cudaErrorInvalidValue);
-  return k2h::row_config(C, smem_bytes, ctas_per_sm, chunk);
+  return v1 ? k2h::row_config<true>(C, smem_bytes, ctas_per_sm, chunk)
+            : k2h::row_config<false>(C, smem_bytes, ctas_per_sm, chunk);
 }
 
-// K4: bytes of device workspace cnb_backward_v1 needs for this shape.
-long long cnb_backward_v1_workspace(int B, int H, int W, int C, int is_bf16) {
-  return workspace(B, H, W, C, is_bf16, true);
+// K4: bytes of device workspace cnb_backward_v1 (first_design = 0) or
+// cnb_backward_v1_v0 needs for this shape.
+long long cnb_backward_v1_workspace(int B, int H, int W, int C, int is_bf16, int first_design) {
+  return workspace(B, H, W, C, is_bf16, true, first_design != 0);
 }
 
-// K4, the recompute-form backward: ptrs are the 25 pointers of the V1 form
-// listed above `backward` (taps and dw bias 16-byte aligned); otherwise as
+// 1 if K4's calls at width C and this dtype run the Hopper pipeline (and take
+// its pointer list), 0 if they run the first design: K2's rule.
+int cnb_backward_v1_route(int C, int is_bf16) { return int(hopper_route(C, is_bf16)); }
+
+// K4, the recompute-form backward: in bf16 up to C = 384 the 24 pointers of
+// the V1 form listed above k2h::backward, otherwise the 25 listed above the
+// first design's `backward` (taps and dw bias 16-byte aligned); otherwise as
 // cnb_backward.
 int cnb_backward_v1(const void* const* ptrs, void* ws, int B, int H, int W, int C, float eps,
                     int is_bf16, void* stream) {
+  if (bad_shape(B, H, W, C)) return int(cudaErrorInvalidValue);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (hopper_route(C, is_bf16)) return k2h::backward<true>(ptrs, ws, B, H, W, C, eps, s);
+  if (is_bf16) return backward<__nv_bfloat16, true>(ptrs, ws, B, H, W, C, eps, s);
+  return backward<float, true>(ptrs, ws, B, H, W, C, eps, s);
+}
+
+// K4's first design whatever the route (the Hopper pipeline's "before"):
+// the 25 pointers listed above `backward`, a cnb_backward_v1_v0 workspace.
+int cnb_backward_v1_v0(const void* const* ptrs, void* ws, int B, int H, int W, int C, float eps,
+                       int is_bf16, void* stream) {
   if (bad_shape(B, H, W, C)) return int(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   if (is_bf16) return backward<__nv_bfloat16, true>(ptrs, ws, B, H, W, C, eps, s);

@@ -37,7 +37,12 @@ ln_scale * d_z2`` and ``db2`` summed before the rounding to dt.
 
   * :func:`convnext_block_bwd_v1` — on a CUDA tensor it launches K4 (the
     ``V1`` instantiation of the same kernels, behind ``cnb_backward_v1``) or
-    raises; on a CPU tensor it returns the plain version.
+    raises: in bf16 up to C = 384 (:func:`bwd_v1_route`) K2's Hopper
+    pipeline under ``V1`` (the recompute of y and four passes, five
+    launches; its dw2 and dgamma in K2's derived forms), otherwise its
+    first design; on a CPU tensor it returns the plain version.
+  * :func:`convnext_block_bwd_v1_v0` — K4's first design whatever the route:
+    the Hopper pipeline's "before", timed beside it. No model path calls it.
   * :func:`convnext_block_bwd_v1_plain` — v1's math and casts in PyTorch.
   * :func:`convnext_block_bwd_explicit` — the port of the JAX explicit
     backward (``convnext_block.py::_bwd_padded`` under
@@ -45,9 +50,10 @@ ln_scale * d_z2`` and ``db2`` summed before the rounding to dt.
     the flipped taps) are :func:`~.dwconv.dwconv7` (K3 on a CUDA tensor),
     the LN/MLP chain is plain PyTorch with exact (erf) GELU.
 
-Launch counts: ``convnext_block_bwd.launches`` and
-``convnext_block_bwd_v1.launches`` are plain integers that the wrappers
-raise by one each time they launch their kernels, and nowhere else.
+Launch counts: ``convnext_block_bwd.launches``,
+``convnext_block_bwd_v1.launches`` and ``convnext_block_bwd_v1_v0.launches``
+are plain integers that the wrappers raise by one each time they launch
+their kernels, and nowhere else.
 """
 
 from __future__ import annotations
@@ -146,14 +152,16 @@ def _library() -> ctypes.CDLL:
     lib.cnb_backward.argtypes = [vp, vp] + [ci] * 4 + [ctypes.c_float, ci, vp]
     lib.cnb_backward.restype = ci
     ip = ctypes.POINTER(ci)
-    lib.cnb_backward_row_config.argtypes = [ci, ip, ip, ip]
+    lib.cnb_backward_row_config.argtypes = [ci, ci, ip, ip, ip]
     lib.cnb_backward_row_config.restype = ci
-    lib.cnb_backward_route.argtypes = [ci, ci]
-    lib.cnb_backward_route.restype = ci
-    lib.cnb_backward_v1_workspace.argtypes = [ci] * 5
+    for fn in (lib.cnb_backward_route, lib.cnb_backward_v1_route):
+        fn.argtypes = [ci, ci]
+        fn.restype = ci
+    lib.cnb_backward_v1_workspace.argtypes = [ci] * 6
     lib.cnb_backward_v1_workspace.restype = ctypes.c_longlong
-    lib.cnb_backward_v1.argtypes = [vp, vp] + [ci] * 4 + [ctypes.c_float, ci, vp]
-    lib.cnb_backward_v1.restype = ci
+    for fn in (lib.cnb_backward_v1, lib.cnb_backward_v1_v0):
+        fn.argtypes = [vp, vp] + [ci] * 4 + [ctypes.c_float, ci, vp]
+        fn.restype = ci
     return lib
 
 
@@ -166,13 +174,34 @@ def hopper_route(dt, c: int) -> bool:
     return bool(_library().cnb_backward_route(c, int(dt == torch.bfloat16)))
 
 
-def row_pass_config(c: int) -> dict:
-    """K2's Hopper row pass at width ``c`` (bf16, ``c`` <= 384) on the current
-    card: its shared memory per CTA, CTAs per SM and hidden chunk."""
+# K4's route (bf16 up to C = 384: the Hopper pipeline), mirrored from the
+# library's rule ``cnb_backward_v1_route``; the wrapper picks its pointer list
+# by it and holds it against the library's at each (dtype, C) it meets
+V1_HOPPER_MAX_C = 384
+
+
+def bwd_v1_route(dt, c: int) -> bool:
+    """Whether K4's CUDA calls in compute dtype ``dt`` at width ``c`` run K2's
+    Hopper pipeline under ``V1`` rather than K4's first design."""
+    return dt == torch.bfloat16 and c <= V1_HOPPER_MAX_C
+
+
+@functools.lru_cache(maxsize=None)
+def _v1_route_checked(dt, c: int) -> bool:
+    route = bwd_v1_route(dt, c)
+    if bool(_library().cnb_backward_v1_route(c, int(dt == torch.bfloat16))) != route:
+        raise RuntimeError(f"K4's route rule disagrees with the library's at {dt}, C={c}")
+    return route
+
+
+def row_pass_config(c: int, v1: bool = False) -> dict:
+    """K2's (``v1``: K4's) Hopper row pass at width ``c`` (bf16, ``c`` <= 384)
+    on the current card: its shared memory per CTA, CTAs per SM and hidden
+    chunk."""
     vals = [ctypes.c_int() for _ in range(3)]
-    rc = _library().cnb_backward_row_config(c, *[ctypes.byref(v) for v in vals])
+    rc = _library().cnb_backward_row_config(c, int(v1), *[ctypes.byref(v) for v in vals])
     if rc != 0:
-        raise RuntimeError(f"cnb_backward_row_config({c}) failed: CUDA error {rc}")
+        raise RuntimeError(f"cnb_backward_row_config({c}, v1={v1}) failed: CUDA error {rc}")
     return dict(zip(("smem_bytes", "ctas_per_sm", "hidden_chunk"), (v.value for v in vals)))
 
 
@@ -285,34 +314,33 @@ def convnext_block_bwd_v1_plain(
     )
 
 
-def convnext_block_bwd_v1(
-    x, g, dw_kernel, dw_bias, ln_scale, ln_bias, w1, b1, w2, b2, gamma, eps: float = 1e-6
-):
-    """Recompute-form block backward (K4). CUDA tensors: one run of K4's
-    kernels (raises on anything they do not take); CPU tensors: the plain
-    version. Returns dx in the compute dtype, then the nine fp32 gradients in
-    the forward's argument order and the port's layouts."""
-    params = (dw_kernel, dw_bias, ln_scale, ln_bias, w1, b1, w2, b2, gamma)
-    if x.device.type == "cpu":
-        return convnext_block_bwd_v1_plain(x, g, *params, eps=eps)
+def _launch_v1(x, g, params, eps, first_design):
+    """One run of K4's kernels: its route's (``cnb_backward_v1``) or, with
+    ``first_design``, its first design's (``cnb_backward_v1_v0``)."""
+    name = "convnext_block_bwd_v1" + ("_v0" if first_design else "")
     check_block_args(x, params)
     if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
-        raise ValueError(f"convnext_block_bwd_v1: g must match x {tuple(x.shape)} {x.dtype} "
-                         f"on {x.device}")
+        raise ValueError(f"{name}: g must match x {tuple(x.shape)} {x.dtype} on {x.device}")
     if not g.is_contiguous():
-        raise ValueError("convnext_block_bwd_v1: g must be contiguous NHWC")
+        raise ValueError(f"{name}: g must be contiguous NHWC")
     dt = x.dtype
     b, h, w, c = x.shape
+    hopper = not first_design and _v1_route_checked(dt, c)
+    dw_kernel, dw_bias, ln_scale, ln_bias, w1, b1, w2, b2, gamma = params
     f32 = dict(dtype=torch.float32, device=x.device)
 
     def vec(t):  # a fresh fp32 copy: contiguous and 16-byte aligned
         return torch.empty(t.shape, **f32).copy_(t)
 
     taps = vec(dw_kernel.reshape(c, 49).t())
-    w1_dt = dt_copy(w1, dt)
-    # the V1 form of the 25 pointer slots (csrc/convnext_block_bwd.cu, `backward`)
-    ins = (x, x, g, taps, dt_copy(w1.t(), dt), dt_copy(w2, dt), w1_dt, w1_dt,
-           dt_copy(w2.t(), dt), vec(b1), vec(b2), vec(gamma), vec(ln_scale), vec(ln_bias))
+    w1_dt, w2_t = dt_copy(w1, dt), dt_copy(w2.t(), dt)
+    # the V1 forms of the pointer slots (csrc/convnext_block_bwd.cu): of
+    # k2h::backward on the Hopper pipeline, of the first design's `backward`
+    if hopper:
+        ins = (x, x, g, taps, w1_dt, w2_t, dt_copy(w1.t(), dt), vec(w2))
+    else:
+        ins = (x, x, g, taps, dt_copy(w1.t(), dt), dt_copy(w2, dt), w1_dt, w1_dt, w2_t)
+    ins += (vec(b1), vec(b2), vec(gamma), vec(ln_scale), vec(ln_bias))
     outs = (torch.empty_like(x), torch.empty(49, c, **f32), torch.empty(c, **f32),
             torch.empty(c, **f32), torch.empty(c, **f32), torch.empty(4 * c, c, **f32),
             torch.empty(4 * c, **f32), torch.empty(c, 4 * c, **f32), torch.empty(c, **f32),
@@ -320,20 +348,53 @@ def convnext_block_bwd_v1(
     ptrs = ins + outs + (vec(dw_bias),)
     lib = _library()
     is_bf16 = int(dt == torch.bfloat16)
-    ws = torch.empty(lib.cnb_backward_v1_workspace(b, h, w, c, is_bf16), dtype=torch.uint8,
-                     device=x.device)
+    ws = torch.empty(lib.cnb_backward_v1_workspace(b, h, w, c, is_bf16, int(first_design)),
+                     dtype=torch.uint8, device=x.device)
     arr = (ctypes.c_void_p * len(ptrs))(*[t.data_ptr() for t in ptrs])
+    fn = lib.cnb_backward_v1_v0 if first_design else lib.cnb_backward_v1
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.cnb_backward_v1(arr, ws.data_ptr(), b, h, w, c, float(eps), is_bf16, stream)
+        rc = fn(arr, ws.data_ptr(), b, h, w, c, float(eps), is_bf16, stream)
     if rc != 0:
-        raise RuntimeError(f"convnext_block_bwd_v1 kernel launch failed: CUDA error {rc}")
-    convnext_block_bwd_v1.launches += 1
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
     dx, ddw, *rest = outs
     return (dx, ddw.t().reshape(c, 1, 7, 7), *rest)
 
 
+def convnext_block_bwd_v1(
+    x, g, dw_kernel, dw_bias, ln_scale, ln_bias, w1, b1, w2, b2, gamma, eps: float = 1e-6
+):
+    """Recompute-form block backward (K4). CUDA tensors: one run of K4's
+    kernels on its route (raises on anything they do not take); CPU tensors:
+    the plain version. Returns dx in the compute dtype, then the nine fp32
+    gradients in the forward's argument order and the port's layouts."""
+    params = (dw_kernel, dw_bias, ln_scale, ln_bias, w1, b1, w2, b2, gamma)
+    if x.device.type == "cpu":
+        return convnext_block_bwd_v1_plain(x, g, *params, eps=eps)
+    out = _launch_v1(x, g, params, eps, first_design=False)
+    convnext_block_bwd_v1.launches += 1
+    return out
+
+
 convnext_block_bwd_v1.launches = 0
+
+
+def convnext_block_bwd_v1_v0(
+    x, g, dw_kernel, dw_bias, ln_scale, ln_bias, w1, b1, w2, b2, gamma, eps: float = 1e-6
+):
+    """K4's first design whatever the route (``cnb_backward_v1_v0``), in every
+    dtype: the Hopper pipeline's "before", timed beside it; no model path
+    calls it. CUDA tensors: one run of its kernels; CPU tensors: the plain
+    version."""
+    params = (dw_kernel, dw_bias, ln_scale, ln_bias, w1, b1, w2, b2, gamma)
+    if x.device.type == "cpu":
+        return convnext_block_bwd_v1_plain(x, g, *params, eps=eps)
+    out = _launch_v1(x, g, params, eps, first_design=True)
+    convnext_block_bwd_v1_v0.launches += 1
+    return out
+
+
+convnext_block_bwd_v1_v0.launches = 0
 
 
 def convnext_block_bwd_explicit(

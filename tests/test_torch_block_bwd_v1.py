@@ -7,12 +7,16 @@ depthwise convolutions the Pallas ``dwconv7`` in interpret mode).
 Inputs come from tests/test_torch_block.py's ``make_args`` (numpy, seeded;
 JAX layouts) and ``to_port``; b=1, h=8, w=8, c=16, the single-chunk size of
 tests/test_pallas_convnext.py. The CUDA kernels run only on the card:
-tests/test_torch_cuda.py and chip_smoke.py.
+tests/test_torch_cuda.py and chip_smoke.py. K4's Hopper pipeline computes
+dw2 and dgamma in K2's derived forms; :func:`k4_hopper_math` writes that
+math out in plain torch, so that the CPU holds the substitution against the
+JAX kernel too.
 """
 
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 import jax.numpy as jnp
 
@@ -33,6 +37,49 @@ def block():
     """Seeded block arguments (JAX layouts) and cotangent."""
     g = np.random.RandomState(31).randn(B, H, W, C).astype(np.float32)
     return make_args(30, b=B, h=H, w=W, c=C), g
+
+
+@pytest.fixture(scope="module")
+def jax_v1(block):
+    """JAX ``fused_block_bwd(..., interpret=True)`` on the block's x, cotangent
+    and raw weights in ``dtype``, in the port's layouts; each dtype's result
+    is computed once (an interpret-mode call takes ~13 s)."""
+    from multitask_bonetumor_yolo_tpu.ops.pallas.convnext_block_bwd import fused_block_bwd
+
+    args, g = block
+    cache = {}
+
+    def get(dtype):
+        if dtype not in cache:
+            x, *params = map(jnp.asarray, args)
+            x, gj = x.astype(dtype), jnp.asarray(g).astype(dtype)
+            cache[dtype] = to_port_grads(fused_block_bwd(
+                pad_for_blocks(x), pad_for_blocks(gj), *params, w=W, c=C, interpret=True))
+        return cache[dtype]
+
+    return get
+
+
+def k4_hopper_math(x, g, *params, eps=1e-6):
+    """K4's Hopper pipeline in plain torch: v1's operands (the plain
+    version's: y, the LN moments and z in fp32, h1 from dt(z * ln_scale +
+    ln_bias) and dt(w1), d_a from dt(g * gamma) and dt(w2)), with dw2 and
+    dgamma in K2's derived forms, ``W = dt(g)^T dt(a)``, ``dw2 = gamma * W``
+    and ``dgamma = sum_j dt(w2) W + b2 sum g``."""
+    dw_kernel, dw_bias, ln_scale, ln_bias, w1, b1, w2, b2, gamma = params
+    out = list(bwds.convnext_block_bwd_v1_plain(x, g, *params, eps=eps))
+    dt, c = x.dtype, x.shape[-1]
+    y = F.conv2d(x.permute(0, 3, 1, 2).float(), dw_kernel.float(), dw_bias.float(), padding=3,
+                 groups=c).permute(0, 2, 3, 1).reshape(-1, c)
+    mean = y.mean(-1, keepdim=True)
+    r = torch.rsqrt(((y * y).mean(-1, keepdim=True) - mean * mean).clamp(min=0.0) + eps)
+    z2 = ((y - mean) * r * ln_scale + ln_bias).to(dt).float()
+    a = port.gelu_tanh(z2 @ w1.to(dt).float().t() + b1).to(dt).float()
+    gf = g.float().reshape(-1, c)
+    wg = gf.t() @ a
+    out[7] = gamma[:, None] * wg
+    out[9] = (w2.to(dt).float() * wg).sum(1) + b2 * gf.sum(0)
+    return out
 
 
 def to_port_grads(grads, w=W, c=C):
@@ -64,21 +111,26 @@ def check_grads(got, want, tol_dx, tol):
     # the fp32 gradients within 1e-4 of their scale
     ("bfloat16", 1.6e-2, 1e-4),
 ])
-def test_v1_plain_matches_jax_fused_block_bwd(block, dtype, tol_dx, tol):
+def test_v1_plain_matches_jax_fused_block_bwd(block, jax_v1, dtype, tol_dx, tol):
     """K4's plain version against JAX ``fused_block_bwd(..., interpret=True)``
     on the same x, cotangent and raw weights."""
-    from multitask_bonetumor_yolo_tpu.ops.pallas.convnext_block_bwd import fused_block_bwd
-
     args, g = block
-    x, *params = map(jnp.asarray, args)
-    x, gj = x.astype(dtype), jnp.asarray(g).astype(dtype)
-    want = to_port_grads(fused_block_bwd(pad_for_blocks(x), pad_for_blocks(gj), *params,
-                                         w=W, c=C, interpret=True))
+    want = jax_v1(dtype)
     tdt = getattr(torch, dtype)
     xt, *pt = to_port(args, tdt)
     got = bwds.convnext_block_bwd_v1_plain(xt, torch.from_numpy(g).to(tdt), *pt)
     assert got[0].dtype == tdt
     check_grads(got, want, tol_dx, tol)
+
+
+def test_k4_hopper_math_matches_jax_fused_block_bwd(block, jax_v1):
+    """K4's Hopper math (:func:`k4_hopper_math`, the derived forms of dw2 and
+    dgamma) against JAX ``fused_block_bwd`` in bf16, at the tolerance the
+    card holds K4 to (3e-2: dx elementwise, each gradient of its scale)."""
+    args, g = block
+    xt, *pt = to_port(args, torch.bfloat16)
+    got = k4_hopper_math(xt, torch.from_numpy(g).to(torch.bfloat16), *pt)
+    check_grads(got, jax_v1("bfloat16"), 3e-2, 3e-2)
 
 
 def test_explicit_matches_jax_explicit_bwd(block, monkeypatch):

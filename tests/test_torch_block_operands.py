@@ -5,8 +5,9 @@ the weights in the layouts its route names: K1's Hopper design takes w1'^T
 and w2'^T (the torch layouts of w1 and w2), its first design w1' and w2';
 K2's Hopper pipeline and first design take their own sets. The routes are
 the CUDA library's rules; here they are set by hand, since no library can
-be built without a card. The kernels themselves run only on the card:
-tests/test_torch_cuda.py.
+be built without a card. K4's route has a Python mirror, which picks its
+pointer list (held against the library on the card). The kernels
+themselves run only on the card: tests/test_torch_cuda.py.
 """
 
 import numpy as np
@@ -93,3 +94,29 @@ def test_first_design_entry_on_cpu_is_the_twin():
     want, want_y = cnb.convnext_block_plain_saving(x, *params)
     assert cnb.convnext_block_v0.launches == before
     assert torch.equal(out, want) and torch.equal(out_s, want) and torch.equal(y, want_y)
+
+
+@pytest.mark.parametrize("dt,c,hopper", [
+    (torch.bfloat16, 48, True), (torch.bfloat16, 96, True), (torch.bfloat16, 192, True),
+    (torch.bfloat16, 384, True), (torch.bfloat16, 768, False), (torch.float32, 96, False),
+    (torch.float32, 384, False), (torch.float32, 768, False),
+])
+def test_k4_route_rule(dt, c, hopper):
+    """K4's Python route rule: bf16 up to C = 384 runs K2's Hopper pipeline
+    under V1; fp32 and C = 768 run K4's first design."""
+    assert k2.bwd_v1_route(dt, c) is hopper
+
+
+def test_k4_first_design_entry_on_cpu_is_the_plain_version():
+    """``convnext_block_bwd_v1_v0`` and ``convnext_block_bwd_v1`` on CPU
+    tensors return K4's plain version and launch nothing."""
+    rs = np.random.RandomState(6)
+    x, g = (torch.from_numpy(rs.randn(1, 9, 7, 32).astype(np.float32)).to(torch.bfloat16)
+            for _ in range(2))
+    params = block_params(7, 32)
+    before = k2.convnext_block_bwd_v1.launches, k2.convnext_block_bwd_v1_v0.launches
+    want = k2.convnext_block_bwd_v1_plain(x, g, *params)
+    for fn in (k2.convnext_block_bwd_v1_v0, k2.convnext_block_bwd_v1):
+        got = fn(x, g, *params)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert (k2.convnext_block_bwd_v1.launches, k2.convnext_block_bwd_v1_v0.launches) == before

@@ -308,18 +308,62 @@ def test_bwd_v1_kernel_matches_plain(dev, shape, dtype, tol):
         assert torch.equal(a, b)
 
 
-def test_bwd_v1_kernel_raises_on_what_it_does_not_take(dev):
+@pytest.mark.parametrize("c", [48, 96, 192, 384])
+def test_bwd_v1_hopper_pipeline(dev, c):
+    """A bf16 call of K4 up to C = 384 runs K2's Hopper pipeline under V1 (the
+    Python rule that picks its pointers agrees with the library's): against
+    the plain version at K2's tolerance at 13 x 11 (a partial 64-pixel
+    tile), two calls equal bit for bit, and at most five launches of K4's
+    kernels per call, counted by the profiler (beside them the wrapper's
+    copies of the parameters into the kernels' dtypes and layouts)."""
+    lib = k2._library()
+    assert k2.bwd_v1_route(torch.bfloat16, c) and lib.cnb_backward_v1_route(c, 1) == 1
+    assert lib.cnb_backward_v1_route(c, 0) == 0 and lib.cnb_backward_v1_route(768, 1) == 0
+    x, *params = block_args(18, 1, 13, 11, c, torch.bfloat16, dev)
+    g = torch.randn_like(x)
+    first = k2.convnext_block_bwd_v1(x, g, *params)
+    want = k2.convnext_block_bwd_v1_plain(x, g, *params)
+    torch.cuda.synchronize()
+    check_bwd(first, want, 3e-2)
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        second = k2.convnext_block_bwd_v1(x, g, *params)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert 0 < len([n for n in names if "k2_" in n or "cnb_" in n]) <= 5, names
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 3e-2), (torch.float32, 1e-2)])
+def test_bwd_v1_first_design_matches_plain(dev, dtype, tol):
+    """K4's first design through its own entry (``convnext_block_bwd_v1_v0``)
+    in both dtypes, whatever the route, against the plain version; one
+    launch on its own count."""
+    x, *params = block_args(19, 1, 13, 21, 96, dtype, dev)
+    g = torch.randn_like(x)
+    before = k2.convnext_block_bwd_v1_v0.launches, k2.convnext_block_bwd_v1.launches
+    got = k2.convnext_block_bwd_v1_v0(x, g, *params)
+    want = k2.convnext_block_bwd_v1_plain(x, g, *params)
+    torch.cuda.synchronize()
+    assert (k2.convnext_block_bwd_v1_v0.launches, k2.convnext_block_bwd_v1.launches) == (
+        before[0] + 1, before[1])
+    check_bwd(got, want, tol)
+
+
+@pytest.mark.parametrize("fn", [k2.convnext_block_bwd_v1, k2.convnext_block_bwd_v1_v0])
+def test_bwd_v1_kernel_raises_on_what_it_does_not_take(dev, fn):
     x, *params = block_args(0, 1, 8, 8, 32, torch.bfloat16, dev)
     g = torch.zeros_like(x)
-    before = k2.convnext_block_bwd_v1.launches
+    before = fn.launches
     with pytest.raises(ValueError):  # g of another dtype
-        k2.convnext_block_bwd_v1(x, g.float(), *params)
+        fn(x, g.float(), *params)
     with pytest.raises(ValueError):  # g not contiguous NHWC
-        k2.convnext_block_bwd_v1(x, g.transpose(1, 2), *params)
+        fn(x, g.transpose(1, 2), *params)
     with pytest.raises(ValueError):  # C above 768
         wide, *wide_params = block_args(0, 1, 8, 8, 784, torch.bfloat16, dev)
-        k2.convnext_block_bwd_v1(wide, torch.zeros_like(wide), *wide_params)
-    assert k2.convnext_block_bwd_v1.launches == before
+        fn(wide, torch.zeros_like(wide), *wide_params)
+    assert fn.launches == before
 
 
 @pytest.mark.parametrize("route", ["fused_v1", "explicit"])
