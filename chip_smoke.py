@@ -9,7 +9,8 @@ is printed):
   1. record the card (``nvidia-smi`` name and power limit);
   2. build the kernels from ``csrc/``, one nvcc per source, all at once: the
      ConvNeXt-block forward (K1), the block backwards (K2 and K4, one
-     source), the standalone depthwise 7x7 (K3) and the kernel lab (K5);
+     source), the standalone depthwise 7x7 (K3) and the kernel lab (K5, and
+     its first design's lab, the "before");
      time the builds, print registers and spills, and the shared memory and
      CTAs per SM of K1's Hopper design and K2's Hopper row pass at each of
      their widths;
@@ -102,17 +103,22 @@ is printed):
      the depths 3/3/9/3; then the gradients of "fused_v1" and "explicit" at
      batch 2 in fp32 against fp32 eager autograd (dx atol/rtol 5e-3,
      parameter gradients 2e-2 of their scale: the tanh/erf GELU gap).
- 13. "[lab]", the kernel lab (K5, K1 cut down phase by phase): each of its 14
-     variants against its plain version at both of its tiles (K1's and TM =
-     32), at the batch-16 stage shapes and at (2, 13, 21, 48) (copy
-     bit-exact; the dw family, dwbf16, dwln and mlpgelubf16 within one bf16
-     step, rtol 2^-7 atol 1e-3; the other products' phases atol/rtol 3e-2),
-     ``full`` bit for bit against K1's first design (``convnext_block_v0``,
-     the design the lab cuts down); each variant timed
+ 13. "[lab]", the kernel lab (K5, K1 cut down phase by phase; in bf16 up to
+     C = 384 K1's Hopper design, at C = 768 its first design): each of its
+     14 variants against its plain version at every legal tile (K1's, and
+     the other Hopper tile at C <= 192), at the batch-16 stage shapes and at
+     (2, 13, 21, 48) (copy bit-exact; the dw family, dwbf16, dwln and
+     mlpgelubf16 within one bf16 step, rtol 2^-7 atol 1e-3; the other
+     products' phases atol/rtol 3e-2), ``full`` at K1's tile bit for bit
+     against K1 (``convnext_block``) and at the other tile within one bf16
+     step of it, the first design's lab (``lab_variant_v0``) against the
+     plain versions at stages 0-2; each variant timed
      (``utils/timing.py::timeloop``) with and without ``padded_io`` beside
      its bound, its plain version and ``x.clone()`` / cuDNN's depthwise
-     convolution where one call computes it ("[lab-time]"); K1's time split
-     by phase per stage ("[lab-split]"); then the entry point
+     convolution where one call computes it, and the first design's lab
+     launch alone at stages 0-2, the "before" ("[lab-time]"); K1's time
+     split by phase per stage at both tiles, the first design's beside it
+     ("[lab-split]"); then the entry point
      ``tools.kernel_lab.main(["--stage", "0"])``, the lab's main path.
 Each phase sets the launch counts to 0 right before the path it drives and
 reads them right after; the K3 and K4 launches of the kernels line are
@@ -1135,13 +1141,31 @@ def lab_split(t):
             "rest": t["full"] - t["dwln"] - t["mlpgelu"] + t["copy"], "full": t["full"]}
 
 
+ONE_BF16_STEP = (2.0 ** -7, 1e-3)  # rtol, atol: the lab's full at the other tile against K1
+
+
+def check_lab(name, got, want, rtol, atol):
+    """Max |got - want|, or raises where it is not finite or past the
+    tolerance."""
+    err = (got.float() - want.float()).abs()
+    if not torch.isfinite(got.float()).all() or bool(
+            (err > atol + rtol * want.float().abs()).any()):
+        raise RuntimeError(f"[lab] {name}: max abs err {err.max().item():.3e} (rtol {rtol}, "
+                           f"atol {atol})")
+    return err.max().item()
+
+
 def phase_lab(cnb, dev):
-    """The kernel lab (K5): every variant against its plain version at both of
-    its tiles, at the batch-16 stage shapes and at C = 48; ``full`` bit for
-    bit against K1 through ``convnext_block``; then each variant at K1's
+    """The kernel lab (K5): every variant against its plain version at every
+    legal tile, at the batch-16 stage shapes (K1's Hopper design cut down at
+    stages 0-2, its first design at stage 3) and at C = 48; ``full`` at K1's
+    tile bit for bit against K1 (``convnext_block``), at the other tile
+    within one bf16 step of it; the first design's lab (``lab_variant_v0``)
+    against the plain versions where it is timed. Then each variant at K1's
     tile timed (``timeloop``) with and without ``padded_io``, beside its
-    bound, its plain version and the library call, where there is one; K1's
-    split by phase per stage (also at TM = 32 where K1's tile is larger);
+    bound, its plain version and the library call, where there is one; the
+    first design's lab timed launch alone at stages 0-2 (the "before"); K1's
+    split by phase per stage at both tiles and the first design's beside it;
     last the entry point itself, ``tools.kernel_lab.main`` at ``--stage 0``,
     with the launch count set to 0 before it and read after."""
     from multitask_bonetumor_yolo_tpu_torch.ops.kernels import kernel_lab as lab
@@ -1151,53 +1175,65 @@ def phase_lab(cnb, dev):
     t_phase = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    six = tools.DEFAULT_VARIANTS.split(",")  # the entry point's variants
+    before_names = list(dict.fromkeys(six + list(LAB_SPLIT)))
     shapes = [(BATCH, s, s, c) for c, s, _ in STAGES] + [(2, 13, 21, 48)]
     max_err = 0.0
     for shape in shapes:
         c = shape[-1]
-        if lab.k1_tile(c)[0] != lab.k1_tile_pixels(c):
-            raise RuntimeError(f"[lab] C={c}: K1's tile {lab.k1_tile(c)} but the CPU route's "
-                               f"rule says TM={lab.k1_tile_pixels(c)}")
+        if lab.hopper_route(c) != cnb.forward_route(torch.bfloat16, c):
+            raise RuntimeError(f"[lab] C={c}: the lab's route differs from K1's")
+        for v0 in (False, True):
+            if lab.k1_tile(c, v0)[0] != lab.k1_tile_pixels(c, v0):
+                raise RuntimeError(f"[lab] C={c}{' v0' if v0 else ''}: K1's tile "
+                                   f"{lab.k1_tile(c, v0)} but the CPU route's rule says TM="
+                                   f"{lab.k1_tile_pixels(c, v0)}")
         x, dw, w1, w2 = tools.lab_inputs(*shape, device=dev)
-        taps, w1k, w2k, zeros = tools.fold(dw, w1, w2, c)
+        taps, w1k, w2k, zeros, wt = tools.fold(dw, w1, w2, c)
         errs = []
         for name in lab.VARIANTS:
             want = lab.lab_variant_plain(name, x, taps, w1k, w2k)
             rtol, atol = lab.card_tolerance(name)
             for tm in lab.legal_tiles(c):
-                got = lab.lab_variant(name, x, taps, w1k, w2k, tm=tm, zeros=zeros)
+                got = lab.lab_variant(name, x, taps, w1k, w2k, tm=tm, zeros=zeros, wt=wt)
                 torch.cuda.synchronize()
-                err = (got.float() - want.float()).abs()
-                if not torch.isfinite(got.float()).all() or bool(
-                        (err > atol + rtol * want.float().abs()).any()):
-                    raise RuntimeError(f"[lab] {name} {shape} TM={tm}: max abs err "
-                                       f"{err.max().item():.3e} (rtol {rtol}, atol {atol})")
-                errs.append((name, tm, err.max().item()))
-                max_err = max(max_err, err.max().item())
-        # full is K1's first design (the lab's device code), the same launch,
-        # bit for bit
+                errs.append((name, tm, check_lab(f"{name} {shape} TM={tm}", got, want, rtol,
+                                                 atol)))
+            if lab.hopper_route(c) and name in before_names:
+                got = lab.lab_variant_v0(name, x, taps, w1k, w2k, zeros=zeros)
+                errs.append((name, "v0", check_lab(f"{name} {shape} first design", got, want,
+                                                   rtol, atol)))
+        max_err = max(max_err, *(e for _, tm, e in errs if tm != "v0"))  # the lab's route
+        # full at K1's tile is K1's own launch on K1's operands, bit for bit;
+        # at the other tile the lab's FULL instantiation, within one bf16 step
         ones = torch.ones(c, device=dev)
-        k1_out = cnb.convnext_block_v0(
+        k1_out = cnb.convnext_block(
             x, taps.permute(2, 0, 1).reshape(c, 1, 7, 7), zeros[:c], ones, zeros[:c],
             w1k.t().float(), zeros, w2k.t().float(), zeros[:c], ones)
-        if not torch.equal(lab.lab_variant("full", x, taps, w1k, w2k, zeros=zeros), k1_out):
-            raise RuntimeError(f"[lab] {shape}: full differs from K1's first design")
+        if not torch.equal(lab.lab_variant("full", x, taps, w1k, w2k, zeros=zeros, wt=wt),
+                           k1_out):
+            raise RuntimeError(f"[lab] {shape}: full differs from K1 (convnext_block)")
+        other = [tm for tm in lab.legal_tiles(c) if tm != lab.k1_tile_pixels(c)]
+        full_other = {tm: check_lab(f"full {shape} TM={tm} against K1", lab.lab_variant(
+            "full", x, taps, w1k, w2k, tm=tm, zeros=zeros, wt=wt), k1_out, *ONE_BF16_STEP)
+            for tm in other}
         log(f"[lab] {shape} bf16, kernel vs plain max abs err per variant and tile: "
             + ", ".join(f"{n}@{tm} {e:.2e}" for n, tm, e in errs)
-            + "; full == K1's first design (convnext_block_v0) bit for bit")
+            + "; full == K1 (convnext_block) bit for bit"
+            + "".join(f"; full@{tm} vs K1 {e:.2e}" for tm, e in full_other.items()))
 
     iters = 10
     table = {name: [] for name in lab.VARIANTS}
-    split = []
+    split, per_stage = [], []
     for c, s, _ in STAGES:
         shape = (BATCH, s, s, c)
         x, dw, w1, w2 = tools.lab_inputs(*shape, device=dev)
-        taps, w1k, w2k, _ = tools.fold(dw, w1, w2, c)
+        taps, w1k, w2k, zeros, wt = tools.fold(dw, w1, w2, c)
         xc = x.permute(0, 3, 1, 2)  # NCHW view of the NHWC bytes (channels_last)
         wb = taps.permute(2, 0, 1).reshape(c, 1, 7, 7).to(torch.bfloat16)
         lib = {"copy": cuda_ms(lambda: x.clone()),
                "dw": cuda_ms(lambda: F.conv2d(xc, wb, padding=3, groups=c))}
-        padded = {}
+        padded, plain = {}, {}
         for name in lab.VARIANTS:
             run, xin = tools.build_variant(name, *shape, 0, torch.bfloat16, device=dev)
             run_p, _ = tools.build_variant(name, *shape, 0, torch.bfloat16, padded_io=True,
@@ -1210,7 +1246,7 @@ def phase_lab(cnb, dev):
             t_lib = (lib["copy"] if name == "copy" else
                      lib["dw"] if name.startswith("dw") and name != "dwln" else None)
             ctas = lab.lab_tile(name, c)[3]
-            padded[name] = t_pad
+            padded[name], plain[name] = t_pad, t_plain
             table[name].append({"shape": list(shape), "ms": t_run, "ms_padded_io": t_pad,
                                 "plain_ms": t_plain, "bound_ms": b_ms, "bound_by": b_by,
                                 "library_ms": t_lib, "ctas_per_sm": ctas})
@@ -1220,18 +1256,37 @@ def phase_lab(cnb, dev):
                 + (f", library {t_lib:.4f}" if t_lib is not None else ""))
         tm, th, tw, _ = lab.lab_tile("full", c)
         row = {"shape": list(shape), "tile": [tm, th, tw], **lab_split(padded)}
-        if tm != lab.SECOND_TILE:  # the same split at the second tile
-            t32 = {}
-            for name in LAB_SPLIT:
-                run_p, xin = tools.build_variant(name, *shape, lab.SECOND_TILE, torch.bfloat16,
-                                                 padded_io=True, device=dev)
-                t32[name] = timeloop(lambda: run_p(xin), iters)
-            row["tm32"] = lab_split(t32)
+        for tm2 in lab.legal_tiles(c):
+            if tm2 != tm:  # the same split at the other tile
+                t2 = {name: timeloop(lambda: lab.lab_variant(
+                    name, x, taps, w1k, w2k, tm=tm2, zeros=zeros, wt=wt), iters)
+                    for name in LAB_SPLIT}
+                row[f"tm{tm2}"] = lab_split(t2)
+        stage = {"shape": list(shape), "six_ms": {n: padded[n] for n in six}}
+        if lab.hopper_route(c):  # the first design's lab, launch alone: the "before"
+            t0 = {name: timeloop(lambda: lab.lab_variant_v0(name, x, taps, w1k, w2k,
+                                                            zeros=zeros), iters)
+                  for name in before_names}
+            row["first_design"] = {"tm": lab.k1_tile_pixels(c, v0=True), **lab_split(t0)}
+            stage["before_ms"] = {n: t0[n] for n in six}
+            for name in before_names:
+                t_lib = table[name][-1]["library_ms"]
+                log(f"[lab-time] {shape} {name:<11s} before (the first design's lab, TM="
+                    f"{lab.k1_tile_pixels(c, v0=True)}), launch alone {t0[name]:.4f} ms; "
+                    f"Hopper lab {padded[name]:.4f}; bound {table[name][-1]['bound_ms']:.4f}, "
+                    f"plain {plain[name]:.4f}"
+                    + (f", library {t_lib:.4f}" if t_lib is not None else ""))
+        stage["six_total_ms"] = sum(stage["six_ms"].values())
+        if "before_ms" in stage:
+            stage["before_total_ms"] = sum(stage["before_ms"].values())
+        per_stage.append(stage)
         split.append(row)
         log(f"[lab-split] {shape} K1 (TM={tm}, {th}x{tw}) by phase, launch alone, ms: "
             + json.dumps({k: v for k, v in row.items() if k not in ("shape", "tile")}))
         log(f"[lab-library] {shape} x.clone() {lib['copy']:.4f} ms; cuDNN depthwise "
-            f"F.conv2d(groups=C) on the bf16 input, bf16 taps {lib['dw']:.4f} ms")
+            f"F.conv2d(groups=C) on the bf16 input, bf16 taps {lib['dw']:.4f} ms; the six "
+            f"launch alone {stage['six_total_ms']:.4f} ms"
+            + (f", before {stage['before_total_ms']:.4f}" if "before_ms" in stage else ""))
 
     # the main path: the lab's entry point on the card, as a user runs it
     lab.lab_variant.launches = 0
@@ -1252,7 +1307,7 @@ def phase_lab(cnb, dev):
     return {"launches": launches, "max_abs_err": max_err, "ms": sum(times.values()),
             "plain_ms": sum(r["plain_ms"] for r in main_rows.values()),
             "bound_ms": sum(by_ms.values()), "bound_by": max(by_ms, key=by_ms.get),
-            "main_path": {"argv": "--stage 0", "ms": times},
+            "main_path": {"argv": "--stage 0", "ms": times}, "per_stage": per_stage,
             "per_variant": table, "split": split}
 
 
@@ -1490,7 +1545,7 @@ def main(argv=None) -> int:
     card = card_line()
     log(f"[card] {card}; torch {torch.__version__} cuda {torch.version.cuda}")
     dev = torch.device("cuda", 0)
-    names = ("convnext_block", "convnext_block_bwd", "dwconv", "kernel_lab")
+    names = ("convnext_block", "convnext_block_bwd", "dwconv", "kernel_lab", "kernel_lab_v0")
     if only and "lab" not in only:
         names = names[:3]
     with ThreadPoolExecutor(len(names)) as ex:
@@ -1499,11 +1554,11 @@ def main(argv=None) -> int:
         log(f"[build] {path.name} in {secs:.2f} s (the builds ran in parallel)")
         lines = [ln.strip() for ln in report.splitlines() if "registers" in ln or "spill" in ln
                  or ("Compiling entry" in ln and ("k2h" in ln or "k1h" in ln))]
-        if name == "kernel_lab":  # ~90 instantiations: a summary
+        if name.startswith("kernel_lab"):  # ~90 instantiations each: a summary
             regs = [int(ln.split("Used ")[1].split()[0]) for ln in lines if "Used " in ln]
             spills = [ln for ln in lines if "spill" in ln and not ln.startswith("0 bytes spill")
                       and " 0 bytes spill stores, 0 bytes spill loads" not in ln]
-            log(f"[build] kernel_lab: {len(regs)} kernels, registers {min(regs, default=0)}"
+            log(f"[build] {name}: {len(regs)} kernels, registers {min(regs, default=0)}"
                 f"-{max(regs, default=0)}; with spills: {spills or 'none'}")
             continue
         for line in lines:

@@ -5,7 +5,7 @@ Each ``csrc/<name>.cu`` has a plain C interface. It is compiled with
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -o build/kernels/<name>-<hash>.so csrc/<name>.cu
 
-(the kernel lab adds ``--split-compile=0``, :data:`EXTRA_FLAGS`) into
+(the kernel labs add ``--split-compile=0``, :data:`EXTRA_FLAGS`) into
 ``build/kernels/`` at the checkout's root (an installed package, which
 has no checkout, uses ``$XDG_CACHE_HOME`` or ``~/.cache`` instead), named by
 a hash of the source and the flags (so an edited source rebuilds), and
@@ -41,11 +41,11 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-# per source: the kernel lab's 87 instantiations are optimised on all the
-# host's cores (nvcc --split-compile), which cut its build beside the other
-# three from 48-71 s to 34 s on the H100 machine (8 cores); the other
-# sources keep the flags their kernels were measured with
-EXTRA_FLAGS = {"kernel_lab": ("--split-compile=0",)}
+# per source: the kernel labs' ~90 instantiations each are optimised on all
+# the host's cores (nvcc --split-compile), which cut the first lab's build
+# beside the other three from 48-71 s to 34 s on the H100 machine (8 cores);
+# the other sources keep the flags their kernels were measured with
+EXTRA_FLAGS = {"kernel_lab": ("--split-compile=0",), "kernel_lab_v0": ("--split-compile=0",)}
 
 
 def nvcc_flags(name: str) -> tuple[str, ...]:

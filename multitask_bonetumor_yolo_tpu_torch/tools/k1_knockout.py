@@ -3,9 +3,11 @@ timed on the card.
 
     python -m multitask_bonetumor_yolo_tpu_torch.tools.k1_knockout [--iters 30]
 
-Builds edited copies of ``csrc/convnext_block.cu``, one library per variant
-and all at once, into ``build/kernels/knockout/``, and times each variant's
-bf16 inference launch alone (operands folded once, CUDA events, two turns
+Builds edited copies of the Hopper design's source
+(``csrc/convnext_block_h.cuh``, compiled through a copy of
+``csrc/convnext_block.cu`` beside it), one library per variant and all at
+once, into ``build/kernels/knockout/``, and times each variant's bf16
+inference launch alone (operands folded once, CUDA events, two turns
 in turn with the others) at the batch-16 640^2 stage shapes C = 96 / 192 /
 384. A variant computes wrong outputs on purpose: nothing checks them, and
 no path of the port loads these libraries.
@@ -38,7 +40,7 @@ import torch
 from ..ops.kernels import build
 from ..ops.kernels import convnext_block as cnb
 
-SOURCE = build.CSRC / "convnext_block.cu"
+SOURCE = build.CSRC / "convnext_block_h.cuh"  # K1's Hopper device code
 STAGES = ((96, 160), (192, 80), (384, 40))  # C, H = W at 640^2
 BATCH = 16
 
@@ -75,9 +77,14 @@ def edited_source(name: str, text: str) -> str:
 
 
 def build_variant(name: str, out_dir: Path) -> Path:
-    src = out_dir / f"k1_{name}.cu"
-    src.write_text(edited_source(name, SOURCE.read_text()))
-    lib = out_dir / f"k1_{name}.so"
+    # the edited header beside a copy of K1's source, which includes it from
+    # its own directory first
+    var_dir = out_dir / name
+    var_dir.mkdir(exist_ok=True)
+    (var_dir / SOURCE.name).write_text(edited_source(name, SOURCE.read_text()))
+    src = var_dir / "convnext_block.cu"
+    src.write_text((build.CSRC / "convnext_block.cu").read_text())
+    lib = var_dir / f"k1_{name}.so"
     cmd = [build.find_nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC), "-o", str(lib), str(src)]
     proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
     if proc.returncode != 0:

@@ -13,14 +13,16 @@ the slope between n and 3n back-to-back calls).
 
   * ``--rc`` keeps its name with the card's meaning: the CTA's pixel tile TM
     (on the TPU, the row chunk: how much of the image one program instance
-    holds). 0 is K1's tile; the lab also has TM = 32 at every C. Any other
-    value raises and names the legal ones. The JAX lab's VMEM row-chunk
-    picker has no counterpart.
+    holds). 0 is K1's tile (64 pixels at stages 0 and 2, 128 at stage 1,
+    32 at stage 3); the lab also has the other Hopper tile, 128 at stage 0
+    and 64 at stage 1. Any other value raises and names the legal ones. The
+    JAX lab's VMEM row-chunk picker has no counterpart.
   * ``--padded-io`` keeps its purpose, telling the kernel's time from the
     layout work around it: without it, each call slices the lab's
     cpad-wide weights to C and folds them into the kernel's layout (taps
-    ``[7, 7, C]``, ``w1 [C, 4C]``, ``w2 [4C, C]``, and for ``full`` the zero
-    biases) before the launch, as a caller would; with it the operands are
+    ``[7, 7, C]``, ``w1 [C, 4C]``, ``w2 [4C, C]``, the zero biases, and up to
+    C = 384 K1's Hopper operands ``w1'^T`` and ``w2'^T`` by K1's own fold)
+    before the launch, as a caller would; with it the operands are
     made once, outside the timed loop, and the launch is timed alone. The
     card's kernel reads NHWC with a zero-filled halo, so x is never padded,
     and the output is ``[b, h, w, c]`` in both modes (the JAX lab's cpad-wide
@@ -66,10 +68,13 @@ def lab_inputs(b, h, w, c, device="cuda"):
 
 def fold(dw, w1, w2, c):
     """The lab's cpad-wide weights in the kernel's layout: taps ``[7, 7, C]``,
-    w1 ``[C, 4C]``, w2 ``[4C, C]`` (contiguous), and an fp32 zero vector of
-    4C values (``full``'s biases)."""
-    return (dw[:7, :7, :c].contiguous(), w1[:c].contiguous(), w2[:, :c].contiguous(),
-            torch.zeros(4 * c, dtype=torch.float32, device=dw.device))
+    w1 ``[C, 4C]``, w2 ``[4C, C]`` (contiguous), an fp32 zero vector of 4C
+    values (the biases), and where the lab runs K1's Hopper design (C <=
+    384) its operands ``(w1'^T, w2'^T)`` (:func:`~..ops.kernels.kernel_lab.
+    hopper_operands`), else None."""
+    taps, w1k, w2k = dw[:7, :7, :c].contiguous(), w1[:c].contiguous(), w2[:, :c].contiguous()
+    wt = lab.hopper_operands(w1k, w2k) if lab.hopper_route(c) else None
+    return taps, w1k, w2k, torch.zeros(4 * c, dtype=torch.float32, device=dw.device), wt
 
 
 def build_variant(variant, b, h, w, c, rc, dt, padded_io=False, device="cuda"):
@@ -87,11 +92,11 @@ def build_variant(variant, b, h, w, c, rc, dt, padded_io=False, device="cuda"):
         ops = fold(dw, w1, w2, c)
 
         def run(xin):
-            return lab.lab_variant(variant, xin, *ops[:3], tm=rc, zeros=ops[3])
+            return lab.lab_variant(variant, xin, *ops[:3], tm=rc, zeros=ops[3], wt=ops[4])
     else:
         def run(xin):
-            taps, w1k, w2k, zeros = fold(dw, w1, w2, c)
-            return lab.lab_variant(variant, xin, taps, w1k, w2k, tm=rc, zeros=zeros)
+            taps, w1k, w2k, zeros, wt = fold(dw, w1, w2, c)
+            return lab.lab_variant(variant, xin, taps, w1k, w2k, tm=rc, zeros=zeros, wt=wt)
 
     return run, x
 
@@ -105,7 +110,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--variants", default=DEFAULT_VARIANTS)
     ap.add_argument("--rc", type=int, default=0,
-                    help="the CTA's pixel tile TM (0: K1's; or 32)")
+                    help="the CTA's pixel tile TM (0: K1's; a refused value names the legal "
+                         "ones)")
     ap.add_argument("--padded-io", action="store_true")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; 'cpu' runs the plain versions)")

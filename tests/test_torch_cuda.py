@@ -406,56 +406,97 @@ def test_nms_on_card_matches_cpu(dev):
     torch.testing.assert_close(got.boxes.cpu(), want.boxes, atol=1e-5, rtol=0)
 
 
-@pytest.mark.parametrize("c", [48, 96])
+@pytest.mark.parametrize("c", [48, 96, 192, 384, 768])
 def test_lab_variants_match_plain(dev, c):
-    """Every variant of the kernel lab (K5) at both of its tiles against its
+    """Every variant of the kernel lab (K5) at every legal tile against its
     plain version, at an odd shape (partial tiles; at C = 48 a partial
     channel chunk and a partial hidden chunk), one launch each, at the
-    tolerances of ``card_tolerance``."""
+    tolerances of ``card_tolerance``: K1's Hopper design cut down up to C =
+    384 (both tiles at C <= 192), its first design at C = 768."""
     x, dw, w1, w2 = lab_tools.lab_inputs(2, 13, 21, c, device=dev)
-    taps, w1k, w2k, zeros = lab_tools.fold(dw, w1, w2, c)
+    taps, w1k, w2k, zeros, wt = lab_tools.fold(dw, w1, w2, c)
+    assert (wt is not None) == (c <= 384) == cnb.forward_route(torch.bfloat16, c)
     for name in k5.VARIANTS:
         want = k5.lab_variant_plain(name, x, taps, w1k, w2k)
         rtol, atol = k5.card_tolerance(name)
         for tm in k5.legal_tiles(c):
             before = k5.lab_variant.launches
-            got = k5.lab_variant(name, x, taps, w1k, w2k, tm=tm, zeros=zeros)
+            got = k5.lab_variant(name, x, taps, w1k, w2k, tm=tm, zeros=zeros, wt=wt)
             torch.cuda.synchronize()
             assert k5.lab_variant.launches == before + 1
             torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol,
                                        msg=lambda m: f"{name} TM={tm}: {m}")
 
 
-@pytest.mark.parametrize("c", [48, 96, 384])
+@pytest.mark.parametrize("c", [48, 96, 192, 384])
 def test_lab_full_is_k1(dev, c):
-    """The lab's ``full`` is K1's first design, the design the lab cuts down:
-    equal bit for bit to ``convnext_block_v0`` with zero biases, unit LN and
-    unit gamma on the same operands; its tile is that design's, and the CPU
+    """The lab's ``full`` at K1's tile is K1 itself (``cnb_forward`` on the
+    Hopper operands): equal bit for bit to ``convnext_block`` with zero
+    biases, unit LN and unit gamma on the same operands; at the other tile
+    within one bf16 step of it. Its tile is K1's Hopper tile, and the CPU
     route's rule for the tile agrees with the library."""
     x, dw, w1, w2 = lab_tools.lab_inputs(2, 13, 21, c, device=dev)
-    taps, w1k, w2k, zeros = lab_tools.fold(dw, w1, w2, c)
+    taps, w1k, w2k, zeros, wt = lab_tools.fold(dw, w1, w2, c)
+    ones = torch.ones(c, device=dev)
+    want = cnb.convnext_block(x, taps.permute(2, 0, 1).reshape(c, 1, 7, 7), zeros[:c], ones,
+                              zeros[:c], w1k.t().float(), zeros, w2k.t().float(), zeros[:c],
+                              ones)
+    assert torch.equal(k5.lab_variant("full", x, taps, w1k, w2k, zeros=zeros, wt=wt), want)
+    assert torch.equal(k5.lab_variant("full", x, taps, w1k, w2k), want)  # operands made inside
+    for tm in k5.legal_tiles(c):
+        got = k5.lab_variant("full", x, taps, w1k, w2k, tm=tm, zeros=zeros, wt=wt)
+        torch.testing.assert_close(got.float(), want.float(), rtol=2.0 ** -7, atol=1e-3)
+    hop = cnb.hopper_tile(c)
+    assert k5.lab_tile("full", c) == k5.k1_tile(c) == (hop["tm"], hop["th"], hop["tw"],
+                                                       hop["ctas_per_sm"])
+    assert k5.k1_tile(c)[0] == k5.k1_tile_pixels(c)
+    assert k5.lab_tile("mlpgelu", c) == k5.k1_tile(c)
+
+
+def test_lab_v0_matches_plain(dev):
+    """The first design's lab (``lab_variant_v0``, the "before") at C = 96:
+    every variant at both of its tiles against its plain version, its
+    ``full`` bit for bit K1's first design, its own launch count."""
+    c = 96
+    x, dw, w1, w2 = lab_tools.lab_inputs(2, 13, 21, c, device=dev)
+    taps, w1k, w2k, zeros, _ = lab_tools.fold(dw, w1, w2, c)
+    assert k5.legal_tiles(c, v0=True) == (32, 128)
+    assert k5.k1_tile(c, v0=True)[0] == k5.k1_tile_pixels(c, v0=True) == 128
+    for name in k5.VARIANTS:
+        want = k5.lab_variant_plain(name, x, taps, w1k, w2k)
+        rtol, atol = k5.card_tolerance(name)
+        for tm in k5.legal_tiles(c, v0=True):
+            before = (k5.lab_variant.launches, k5.lab_variant_v0.launches)
+            got = k5.lab_variant_v0(name, x, taps, w1k, w2k, tm=tm, zeros=zeros)
+            torch.cuda.synchronize()
+            assert (k5.lab_variant.launches, k5.lab_variant_v0.launches) == (
+                before[0], before[1] + 1)
+            torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol,
+                                       msg=lambda m: f"{name} TM={tm}: {m}")
     ones = torch.ones(c, device=dev)
     want = cnb.convnext_block_v0(x, taps.permute(2, 0, 1).reshape(c, 1, 7, 7), zeros[:c], ones,
                                  zeros[:c], w1k.t().float(), zeros, w2k.t().float(), zeros[:c],
                                  ones)
-    assert torch.equal(k5.lab_variant("full", x, taps, w1k, w2k), want)
-    assert k5.lab_tile("full", c) == k5.k1_tile(c)
-    assert k5.k1_tile(c)[0] == k5.k1_tile_pixels(c)
-    assert k5.lab_tile("mlpgelu", c)[:3] == k5.k1_tile(c)[:3]
+    assert torch.equal(k5.lab_variant_v0("full", x, taps, w1k, w2k, zeros=zeros), want)
 
 
 def test_lab_raises_on_what_it_does_not_take(dev):
     x, dw, w1, w2 = lab_tools.lab_inputs(1, 8, 8, 96, device=dev)
-    ops = lab_tools.fold(dw, w1, w2, 96)[:3]
-    before = k5.lab_variant.launches
+    ops = lab_tools.fold(dw, w1, w2, 96)
+    before = (k5.lab_variant.launches, k5.lab_variant_v0.launches)
     with pytest.raises(TypeError):
-        k5.lab_variant("dw", x.float(), *ops)
+        k5.lab_variant("dw", x.float(), *ops[:3])
     with pytest.raises(ValueError, match="unknown variant"):
-        k5.lab_variant("dwfast", x, *ops)
+        k5.lab_variant("dwfast", x, *ops[:3])
     with pytest.raises(ValueError, match="multiple of 16"):
-        k5.lab_variant("dw", torch.zeros(1, 8, 8, 24, dtype=torch.bfloat16, device=dev), *ops)
+        k5.lab_variant("dw", torch.zeros(1, 8, 8, 24, dtype=torch.bfloat16, device=dev),
+                       *ops[:3])
+    with pytest.raises(ValueError, match=r"legal: \(64, 128\)"):
+        k5.lab_variant("dw", x, *ops[:3], tm=32)
     with pytest.raises(ValueError, match=r"legal: \(32, 128\)"):
-        k5.lab_variant("dw", x, *ops, tm=64)
+        k5.lab_variant_v0("dw", x, *ops[:3], tm=64)
     with pytest.raises(ValueError):  # w1 not in the kernel's layout
         k5.lab_variant("mlp", x, ops[0], ops[1].t(), ops[2])
-    assert k5.lab_variant.launches == before
+    with pytest.raises(ValueError, match="w1'"):  # the Hopper operands transposed
+        k5.lab_variant("mlp", x, *ops[:3], wt=(ops[4][1], ops[4][0]))
+    assert (k5.lab_variant.launches, k5.lab_variant_v0.launches) == before

@@ -1,6 +1,6 @@
 """The K1 knockout tool's edits still fit the kernel's source (CPU, torch
 only): each variant of ``tools/k1_knockout.py`` finds every text it edits in
-``csrc/convnext_block.cu`` exactly once. The variants themselves build and
+K1's Hopper source, ``csrc/convnext_block_h.cuh``, exactly once. The variants themselves build and
 run only on the card."""
 
 import pytest

@@ -57,15 +57,16 @@ def test_mlptanh(jax_outputs):
 
 def test_build_variant_padded_io_and_refusals():
     """``padded_io`` only moves the operands' fold out of ``run``: the same
-    x and output; ``rc`` is the tile TM (K1's, or 32) and nothing else."""
+    x and output; ``rc`` is the tile TM (K1's, or the other Hopper tile) and
+    nothing else."""
     plain = tools.build_variant("full", 2, 4, 6, 48, 0, torch.bfloat16, device="cpu")
-    padded = tools.build_variant("full", 2, 4, 6, 48, 32, torch.bfloat16, padded_io=True,
+    padded = tools.build_variant("full", 2, 4, 6, 48, 128, torch.bfloat16, padded_io=True,
                                  device="cpu")
     torch.testing.assert_close(plain[1], padded[1], rtol=0, atol=0)
     torch.testing.assert_close(plain[0](plain[1]), padded[0](padded[1]), rtol=0, atol=0)
     assert tuple(padded[0](padded[1]).shape) == (2, 4, 6, 48)
-    with pytest.raises(ValueError, match=r"legal: \(32, 128\)"):
-        tools.build_variant("dw", 1, 4, 4, 96, 64, torch.bfloat16, device="cpu")
+    with pytest.raises(ValueError, match=r"legal: \(64, 128\)"):
+        tools.build_variant("dw", 1, 4, 4, 96, 32, torch.bfloat16, device="cpu")
     with pytest.raises(TypeError):
         tools.build_variant("dw", 1, 4, 4, 96, 0, torch.float32, device="cpu")
 
@@ -78,13 +79,13 @@ def test_main_prints_one_line_per_variant(capsys):
     times = tools.main(["--device", "cpu", "--img", "32", "--batch", "1", "--iters", "1",
                         "--variants", names])
     lines = capsys.readouterr().out.splitlines()
-    assert lines[0].startswith("stage0 8x8x96 TM=128 ") and "batch=1" in lines[0]
+    assert lines[0].startswith("stage0 8x8x96 TM=64 ") and "batch=1" in lines[0]
     assert len(lines) == 1 + len(lab.VARIANTS) and list(times) == list(lab.VARIANTS)
     for line, name in zip(lines[1:], lab.VARIANTS):
         assert line.startswith(f"  {name:<8s} ") and " ms" in line
         assert np.isfinite(times[name]) and times[name] > 0
     assert "(= mlpgelu)" in lines[1 + list(lab.VARIANTS).index("mlptanh")]
-    with pytest.raises(ValueError, match=r"legal: \(32, 64\)"):
+    with pytest.raises(ValueError, match=r"legal: \(64, 128\)"):
         tools.main(["--device", "cpu", "--img", "32", "--stage", "1", "--rc", "16"])
 
 
