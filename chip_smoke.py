@@ -78,12 +78,18 @@ is printed):
      turn and peak memory; then each side under ``torch.profiler`` over 3
      steps: device kernel time per step by category, kernels per step and
      the device's idle share ("[profile]");
- 10. K3 against ``F.conv2d(groups=C)`` on the fp32 input (TF32 off) with the
-     taps and with the flipped taps (the explicit backward's two calls), at
-     the stage shapes at batch 2 and 8, the odd shape and C=48, bf16
-     (atol/rtol 3e-2) and fp32 (1e-2); then K3 (CUDA events, and its kernel
-     alone under ``torch.profiler``), its plain version and cuDNN's
-     depthwise convolution timed at the batch-8 stage shapes;
+ 10. K3 (its Hopper design, ``csrc/dwconv.cuh``) against ``F.conv2d(groups=C)``
+     on the fp32 input (TF32 off) with the taps, the flipped taps (the
+     explicit backward's two calls) and with a bias (the library's bias
+     pointer, as K4's recompute passes it), at the stage shapes at batch 2
+     and 8, the odd shape, C=48, C=16 and batch 32 at 20^2 x 768 (more work
+     units than CTAs), bf16 (atol/rtol 3e-2) and fp32 (1e-2), and bit for
+     bit against its first design (``dwconv7_v0``); the library's plan
+     against its Python mirror; both designs' registers (ptxas) and SASS
+     instructions per output value (``cuobjdump``); then "[k3-time]": the
+     Hopper design and the first design in turns (CUDA events, and each
+     kernel alone under ``torch.profiler``), the bound, the plain version
+     and cuDNN's depthwise convolution at the batch-8 stage shapes;
  11. K4 against its plain version on both of its designs, its route (in
      bf16 up to C = 384 K2's Hopper pipeline under V1) and its first design
      (``convnext_block_bwd_v1_v0``), at the shapes of phase 6 and at batch 8
@@ -836,32 +842,158 @@ def phase_k2_split(cnb, k2, dev, gen):
     return out
 
 
+# nvcc's report per library, by name, from the builds in main (ptxas -v)
+BUILD_REPORTS = {}
+
+
+def ptxas_kernels(report: str) -> dict:
+    """Registers and spills per kernel from an ``nvcc -Xptxas -v`` report: the
+    demangled-enough name (its mangled form) -> (registers, spill line)."""
+    out, name = {}, None
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif name and "Used " in line and "registers" in line:
+            out[name] = [int(line.split("Used ")[1].split()[0]), out.get(name, [0, ""])[1]]
+        elif name and "spill" in line:
+            out.setdefault(name, [0, ""])[1] = line.split(":", 1)[-1].strip()
+    return out
+
+
+def k3_kernel_label(mangled: str) -> str:
+    """K3's kernels by design and dtype (the mangled template argument:
+    ``cnb_dwconv7_kernelI13__nv_bfloat16E``)."""
+    design = "first design" if "dwconv7_v0" in mangled else "hopper"
+    return f"{design} {'bf16' if 'bfloat16' in mangled else 'fp32'}"
+
+
+def sass_instructions(lib_path) -> dict:
+    """SASS of every kernel in a built library (``cuobjdump -sass``): the
+    kernel's mangled name -> its instruction opcodes, with the labels as
+    ``":"`` entries (NOPs dropped)."""
+    import re
+    import shutil
+
+    from multitask_bonetumor_yolo_tpu_torch.ops.kernels import build
+
+    tool = shutil.which("cuobjdump") or str(Path(build.find_nvcc()).parent / "cuobjdump")
+    text = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
+                          check=True, timeout=120).stdout
+    out, cur = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            cur = out.setdefault(m.group(1), [])
+            continue
+        if cur is None:
+            continue
+        if re.match(r"\s*\.L_x_\d+:", line):
+            cur.append(":")
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if m and not m.group(2).startswith("NOP"):
+            cur.append(m.group(2) + ("?" if m.group(1) else ""))
+    return out
+
+
+def k3_instructions_per_value(ops, hopper: bool, px: int):
+    """SASS instructions per output value of K3's band code. Hopper design:
+    its unguarded band, the 7 basic blocks of at least 40 P FFMAs (one per
+    input row; a guarded row splits at each tap row) through the stores of
+    the last, up to the next unconditional branch or barrier, over its 7 P
+    outputs per thread. First design (bf16, fully unrolled): from the
+    barrier after the copies to the end, over its 32 outputs per thread.
+    None where the code has not that shape."""
+    if not hopper:
+        bars = [i for i, op in enumerate(ops) if op.startswith("BAR.SYNC")]
+        if not bars:
+            return None
+        body = [op for op in ops[bars[-1] + 1:] if op != ":"]
+        return len(body) / 32
+    blocks, start = [], 0
+    for i, op in enumerate(ops + [":"]):
+        if op == ":" or op.startswith(("BRA", "EXIT", "BAR.")):
+            blocks.append((start, i))
+            start = i + 1
+    big = [(a, b) for a, b in blocks if sum(op.startswith("FFMA") for op in ops[a:b]) >= 40 * px]
+    if len(big) < 7:
+        return None
+    first = big[0][0]
+    last = big[6][1]
+    end = next((i for i in range(last, len(ops))
+                if ops[i] in ("BRA", "BAR.SYNC", "BAR.SYNC.DEFER_BLOCKING") or ops[i] == "EXIT"),
+               len(ops))
+    body = [op for op in ops[first:end] if op != ":"]
+    return len(body) / (7 * px)
+
+
 def phase_dwconv(k3, dev, gen):
-    """K3 against its plain version, both calls of the explicit backward (the
-    taps and the flipped taps), then K3, its plain version and cuDNN's
-    depthwise convolution timed at the batch-8 stage shapes."""
+    """K3's Hopper design against its plain version and bit for bit against
+    its first design (``dwconv7_v0``): both calls of the explicit backward
+    (the taps and the flipped taps) and with a bias (the library's bias
+    pointer, as K4's recompute passes it); the library's plan against its
+    Python mirror; registers (ptxas) and SASS instructions per output value
+    of both designs; then "[k3-time]": the Hopper design and the first
+    design in turns (CUDA events, and each kernel alone under
+    ``torch.profiler``), the bound, the plain version and cuDNN's depthwise
+    convolution at the batch-8 stage shapes."""
+    from multitask_bonetumor_yolo_tpu_torch.ops.kernels import build
+
     torch.backends.cudnn.allow_tf32 = False
+    regs = {k3_kernel_label(k): v for k, v in ptxas_kernels(BUILD_REPORTS.get("dwconv", "")).items()}
+    sass = {k3_kernel_label(k): ops for k, ops in
+            sass_instructions(build.library_path("dwconv")).items() if "dwconv7" in k}
+    per_value = {}
+    for label, ops in sorted(sass.items()):
+        per_value[label] = k3_instructions_per_value(ops, label.startswith("hopper"), k3.PX)
+        ffma = sum(op.startswith("FFMA") for op in ops)
+        log(f"[k3-build] {label}: registers {regs.get(label, ['?'])[0]}, spills "
+            f"{regs.get(label, [0, '?'])[1]}; SASS {len([o for o in ops if o != ':'])} "
+            f"instructions, {ffma} FFMA; band code {per_value[label]} instructions per output "
+            f"value")
+    if any("0 bytes spill stores" not in v[1] for v in regs.values()):
+        raise RuntimeError(f"[k3] a K3 kernel spills: {regs}")
     # fp32 at FP32_TOL, the script's fp32 tolerance: K3 sums exact fp32
     # products in fp32 like its plain version (no TF32 anywhere), so its
     # fp32 errors are ~1e-6 (printed); the bound is shared with the kernels
-    # whose fp32 products run in TF32
+    # whose fp32 products run in TF32. (32, 20, 20, 768): more units than
+    # CTAs, so CTAs walk several units; (2, 9, 11, 16): C below the chunk.
     shapes = ([(b, s, s, c) for b in (2, TRAIN_BATCH) for c, s, _ in STAGES]
-              + [(1, 13, 21, 96), (3, 7, 5, 48)])
-    max_err = 0.0
+              + [(1, 13, 21, 96), (3, 7, 5, 48), (2, 9, 11, 16), (32, 20, 20, 768)])
+    max_err, persistent = 0.0, False
     for shape in shapes:
         for dt, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, FP32_TOL)):
+            plan = k3.library_plan(*shape, dt)
+            mirror = k3.dwconv7_plan(*shape, dt.itemsize, sms=plan["sms"],
+                                     ctas_per_sm=plan["ctas_per_sm"])
+            if plan != mirror:
+                raise RuntimeError(f"[k3] plan {shape} {dt}: library {plan}, mirror {mirror}")
+            persistent |= plan["units"] > plan["grid"]
             x = torch.randn(shape, generator=gen, device=dev).to(dt)
             taps = torch.randn(7, 7, shape[-1], generator=gen, device=dev) * 0.1
+            bias = torch.randn(shape[-1], generator=gen, device=dev)
             errs = []
-            for name, t in (("taps", taps), ("flipped taps", taps.flip(0, 1))):
-                got = k3.dwconv7(x, t)
-                want = k3.dwconv7_plain(x, t)
+            for name, t, bs in (("taps", taps, None), ("flipped taps", taps.flip(0, 1), None),
+                                ("taps + bias", taps, bias)):
+                before = k3.dwconv7.launches, k3.dwconv7_v0.launches
+                got = k3.dwconv7(x, t, bs)
+                v0 = k3.dwconv7_v0(x, t, bs)
+                want = k3.dwconv7_plain(x, t, bs)
                 torch.cuda.synchronize()
+                if (k3.dwconv7.launches, k3.dwconv7_v0.launches) != (before[0] + 1, before[1] + 1):
+                    raise RuntimeError(f"[k3] {shape} {dt} {name}: launch counts")
                 errs.append(check_close(f"K3 {shape} {dt} {name}", got, want, tol))
+                if not torch.equal(got, v0):
+                    raise RuntimeError(f"K3 {shape} {dt} {name}: the Hopper design differs from "
+                                       f"the first design by {(got - v0).abs().max().item():.3e}")
             if dt == torch.bfloat16:
                 max_err = max(max_err, *errs)
             log(f"[k3] {shape} {str(dt):15s} max_abs_err {errs[0]:.3e}, flipped taps "
-                f"{errs[1]:.3e} (tol {tol})")
+                f"{errs[1]:.3e}, with bias {errs[2]:.3e} (tol {tol}); equal to the first design "
+                f"bit for bit; plan {json.dumps(plan)}")
+            del x, got, v0, want
+    if not persistent:
+        raise RuntimeError("[k3] no checked shape had more work units than CTAs")
 
     per_stage = []
     for c, s, depth in STAGES:
@@ -870,19 +1002,36 @@ def phase_dwconv(k3, dev, gen):
         taps = torch.randn(7, 7, c, generator=gen, device=dev) * 0.1
         xf = x.float()
         w = taps.permute(2, 0, 1).reshape(c, 1, 7, 7).contiguous()
+        # turns: Hopper, first design, plain, cuDNN, first design, Hopper
         t_k3 = cuda_ms(lambda: k3.dwconv7(x, taps))
+        t_v0 = cuda_ms(lambda: k3.dwconv7_v0(x, taps))
         t_plain = cuda_ms(lambda: k3.dwconv7_plain(x, taps))
         t_lib = cuda_ms(lambda: F.conv2d(xf.permute(0, 3, 1, 2), w, padding=3, groups=c))
+        t_v0b = cuda_ms(lambda: k3.dwconv7_v0(x, taps))
         t_k3b = cuda_ms(lambda: k3.dwconv7(x, taps))
-        t_dev = device_ms(lambda: k3.dwconv7(x, taps), "cnb_dwconv7", launches=1)
+        d_k3 = device_ms(lambda: k3.dwconv7(x, taps), "cnb_dwconv7", launches=1)
+        d_v0 = device_ms(lambda: k3.dwconv7_v0(x, taps), "cnb_dwconv7_v0", launches=1)
+        d_k3b = device_ms(lambda: k3.dwconv7(x, taps), "cnb_dwconv7", launches=1)
         b_ms, b_by = k3_bound(*shape)
-        per_stage.append({"shape": list(shape), "ms": (t_k3 + t_k3b) / 2, "plain_ms": t_plain,
+        plan = k3.library_plan(*shape, torch.bfloat16)
+        label = "hopper bf16"
+        per_stage.append({"shape": list(shape), "ms": (t_k3 + t_k3b) / 2,
+                          "first_design_ms": (t_v0 + t_v0b) / 2, "plain_ms": t_plain,
                           "library_ms": t_lib, "bound_ms": b_ms, "bound_by": b_by,
-                          "device_ms": t_dev})
+                          "device_ms": (d_k3 + d_k3b) / 2, "first_design_device_ms": d_v0,
+                          "registers": regs.get(label, [None])[0],
+                          "first_design_registers": regs.get("first design bf16", [None])[0],
+                          "instructions_per_value": per_value.get(label),
+                          "first_design_instructions_per_value":
+                              per_value.get("first design bf16"),
+                          "wasted_lanes": k3.wasted_lanes(plan, s, c), "plan": plan})
         log(f"[k3-time] {shape} bf16 in, fp32 out: K3 {t_k3:.4f}/{t_k3b:.4f} ms (its kernel "
-            f"alone {t_dev:.4f} ms on the device; bound {b_ms:.4f} ms, {b_by}), plain "
-            f"{t_plain:.4f} ms, cuDNN depthwise F.conv2d on the fp32 input {t_lib:.4f} ms")
-    return max_err, per_stage
+            f"alone {d_k3:.4f}/{d_k3b:.4f} ms on the device), first design {t_v0:.4f}/"
+            f"{t_v0b:.4f} ms ({d_v0:.4f} ms on the device); bound {b_ms:.4f} ms, {b_by}; plain "
+            f"{t_plain:.4f} ms, cuDNN depthwise F.conv2d on the fp32 input {t_lib:.4f} ms; "
+            f"{label}, {plan['grid']} CTAs for {plan['units']} units of {plan['seg_rows']} rows")
+    return max_err, per_stage, {"registers": {k: v[0] for k, v in regs.items()},
+                                "instructions_per_value": per_value}
 
 
 def phase_bwd_v1(cnb, k2, dev, gen):
@@ -1315,8 +1464,8 @@ def phase_lab(cnb, dev):
 # demangled name. The port's kernels carry their own prefixes (K1
 # ``cnb_forward_kernel`` and ``k1h::k1_forward_kernel``, K2
 # ``k2h::k2_*_kernel`` and ``cnb_bwd_spatial_kernel``, K4
-# ``cnb_bwd_*_kernel``, K3 ``cnb_dwconv7_kernel``), which no PyTorch kernel
-# has.
+# ``cnb_bwd_*_kernel``, K3 ``cnb_dwconv7_kernel`` and its first design
+# ``cnb_dwconv7_v0_kernel``), which no PyTorch kernel has.
 CATEGORIES = (
     ("K1 (convnext_block.cu)", ("cnb_forward_kernel", "k1h::")),
     ("K3 (dwconv.cuh)", ("cnb_dwconv7",)),
@@ -1551,9 +1700,10 @@ def main(argv=None) -> int:
     with ThreadPoolExecutor(len(names)) as ex:
         builds = dict(zip(names, ex.map(timed_build, names)))
     for name, (path, report, secs) in builds.items():
+        BUILD_REPORTS[name] = report
         log(f"[build] {path.name} in {secs:.2f} s (the builds ran in parallel)")
         lines = [ln.strip() for ln in report.splitlines() if "registers" in ln or "spill" in ln
-                 or ("Compiling entry" in ln and ("k2h" in ln or "k1h" in ln))]
+                 or ("Compiling entry" in ln and ("k2h" in ln or "k1h" in ln or "dwconv7" in ln))]
         if name.startswith("kernel_lab"):  # ~90 instantiations each: a summary
             regs = [int(ln.split("Used ")[1].split()[0]) for ln in lines if "Used " in ln]
             spills = [ln for ln in lines if "spill" in ln and not ln.startswith("0 bytes spill")
@@ -1607,7 +1757,7 @@ def main(argv=None) -> int:
     err_sav, err_dx, err_scale, bwd_stages, tot = r["k2"]
     k2_split = r["k2-split"]
     _, n_saving, n_bwd = r["train"]
-    err_k3, k3_stages = r["k3"]
+    err_k3, k3_stages, k3_build = r["k3"]
     err_k4_dx, err_k4_scale, k4_stages = r["k4"]
     k4_split = r["k4-split"]
     fb_launches, fb_table, fb_totals, fb_grad_err = r["fwdbwd"]
@@ -1647,7 +1797,9 @@ def main(argv=None) -> int:
          "source": "multitask_bonetumor_yolo_tpu_torch/csrc/dwconv.cu",
          "replaces": "multitask_bonetumor_yolo_tpu/ops/pallas/dwconv.py:25",
          "launches": fb_launches["explicit"][4], "max_abs_err": err_k3,
-         **path_totals(k3_stages, 2, ("ms", "plain_ms", "library_ms")),
+         **path_totals(k3_stages, 2, ("ms", "first_design_ms", "plain_ms", "library_ms")),
+         "registers": k3_build["registers"],
+         "instructions_per_value": k3_build["instructions_per_value"],
          "per_stage": k3_stages},
         {"name": "convnext_block_bwd_v1", **common,
          "source": "multitask_bonetumor_yolo_tpu_torch/csrc/convnext_block_bwd.cu",

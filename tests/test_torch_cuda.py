@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (K1 in both forms and both designs, K2, K3, K4,
+"""The port's CUDA kernels (K1 in both forms and both designs, K2, K3 in both designs, K4,
 the kernel lab K5) and its device-side NMS on the card.
 
 Every test here carries the ``cuda`` marker and skips without a card. The
@@ -254,36 +254,53 @@ def test_bwd_kernel_raises_on_what_it_does_not_take(dev):
     ((1, 13, 21, 48), torch.bfloat16, 1e-4),
     ((2, 160, 160, 96), torch.bfloat16, 1e-4),
     ((3, 7, 5, 784), torch.float32, 1e-4),  # wider than the block kernels take
+    ((2, 23, 19, 48), torch.float32, 1e-4),  # H not a multiple of the 7-row band
+    ((2, 9, 11, 16), torch.bfloat16, 1e-4),  # C below the 32-channel chunk
+    ((32, 20, 20, 768), torch.bfloat16, 1e-4),  # more work units than CTAs
 ])
 def test_dwconv_kernel_matches_plain(dev, shape, dtype, tol):
-    """K3 against ``F.conv2d(groups=C)`` on the fp32 input (TF32 off), and
-    with the flipped taps of the explicit backward: fp32 sums of exact
-    products in both, in other orders (1e-4)."""
+    """K3 (its Hopper design) against ``F.conv2d(groups=C)`` on the fp32
+    input (TF32 off), with the flipped taps of the explicit backward and with
+    a bias (the library's bias pointer, as K4's recompute passes it): fp32
+    sums of exact products in both, in other orders (1e-4); and bit for bit
+    equal to the first design (``dwconv7_v0``: the same fmaf chain per
+    output). The library's plan equals its Python mirror."""
     rs = np.random.RandomState(14)
     x = torch.from_numpy(rs.randn(*shape).astype(np.float32)).to(dev, dtype)
     taps = torch.from_numpy(rs.randn(7, 7, shape[-1]).astype(np.float32) * 0.1).to(dev)
-    for t in (taps, taps.flip(0, 1)):
-        before = k3.dwconv7.launches
-        got = k3.dwconv7(x, t)
-        want = k3.dwconv7_plain(x, t)
+    bias = torch.from_numpy(rs.randn(shape[-1]).astype(np.float32)).to(dev)
+    plan = k3.library_plan(*shape, dtype)
+    assert plan == k3.dwconv7_plan(*shape, dtype.itemsize, sms=plan["sms"],
+                                   ctas_per_sm=plan["ctas_per_sm"])
+    for t, b in ((taps, None), (taps.flip(0, 1), None), (taps, bias)):
+        before = k3.dwconv7.launches, k3.dwconv7_v0.launches
+        got = k3.dwconv7(x, t, b)
+        v0 = k3.dwconv7_v0(x, t, b)
+        want = k3.dwconv7_plain(x, t, b)
         torch.cuda.synchronize()
-        assert k3.dwconv7.launches == before + 1 and got.dtype == torch.float32
+        assert (k3.dwconv7.launches, k3.dwconv7_v0.launches) == (before[0] + 1, before[1] + 1)
+        assert got.dtype == torch.float32
         torch.testing.assert_close(got, want, atol=tol, rtol=tol)
+        assert torch.equal(got, v0)
 
 
 def test_dwconv_kernel_raises_on_what_it_does_not_take(dev):
+    """Both designs' wrappers refuse the same inputs and launch nothing."""
     x = torch.zeros(1, 8, 8, 32, device=dev, dtype=torch.bfloat16)
     taps = torch.zeros(7, 7, 32, device=dev)
-    before = k3.dwconv7.launches
-    with pytest.raises(ValueError):  # C not a multiple of 16
-        k3.dwconv7(x[..., :24].contiguous(), taps[..., :24])
-    with pytest.raises(TypeError):
-        k3.dwconv7(x.half(), taps)
-    with pytest.raises(ValueError):  # not contiguous NHWC
-        k3.dwconv7(x.transpose(1, 2), taps)
-    with pytest.raises(ValueError):  # taps of another width
-        k3.dwconv7(x, taps[..., :16])
-    assert k3.dwconv7.launches == before
+    for fn in (k3.dwconv7, k3.dwconv7_v0):
+        before = k3.dwconv7.launches, k3.dwconv7_v0.launches
+        with pytest.raises(ValueError):  # C not a multiple of 16
+            fn(x[..., :24].contiguous(), taps[..., :24])
+        with pytest.raises(TypeError):
+            fn(x.half(), taps)
+        with pytest.raises(ValueError):  # not contiguous NHWC
+            fn(x.transpose(1, 2), taps)
+        with pytest.raises(ValueError):  # taps of another width
+            fn(x, taps[..., :16])
+        with pytest.raises(ValueError):  # bias of another width
+            fn(x, taps, taps[0, 0, :16])
+        assert (k3.dwconv7.launches, k3.dwconv7_v0.launches) == before
 
 
 @pytest.mark.parametrize("shape,dtype,tol", [
