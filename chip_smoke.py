@@ -126,6 +126,25 @@ is printed):
      split by phase per stage at both tiles, the first design's beside it
      ("[lab-split]"); then the entry point
      ``tools.kernel_lab.main(["--stage", "0"])``, the lab's main path.
+ 14. "eval" (run after phase 5's "[infer-cli]", on phase 4's model): a
+     synthetic BTXRD dataset of 40 PNGs (320-960 px, ``rich``) written with
+     the port's ``make_synthetic_btxrd``; the served weights with the Detect
+     head's class biases shifted so that the eval forward scores ~250
+     anchors per image above 0.05 (``condition_for_eval``), saved with
+     ``CheckpointManager`` and a ``config.json`` sidecar (model, TAL loss,
+     data); one batch-16 eval step (``make_eval_step``) under ``"auto"``
+     (15 K1 launches) and ``"off"`` (none): losses, class logits and the
+     pre-NMS predictions within 3e-2, the seg probabilities no farther from
+     the fp32 eager forward than 2x the bf16 eager path's (+1e-3), seg_counts
+     apart by at most 1 % of the pixels, NMS keeping boxes and the
+     confusion matrix counting, the BN running statistics bit for bit as
+     they were; "[eval-time]" (CUDA events and profiler device time); then
+     ``cli.evaluate.main`` in process
+     (``--split all --batch-size 16 --image-ext .png --epochs 2
+     --log-examples``): 90 K1 launches, the JAX CLI's key set, finite
+     values, pass 2 (replayed from the device cache) equal to pass 1, the
+     overlays read back; "[evaluate]" gives both passes' times, the host's
+     work of pass 1 timed alone, and the peak device memory.
 Each phase sets the launch counts to 0 right before the path it drives and
 reads them right after; the K3 and K4 launches of the kernels line are
 those of phase 12's pass over the trunk. Prints the kernels' JSON line, the card's line, and
@@ -625,6 +644,256 @@ def phase_infer_cli(cnb, model, conf, dev, gen):
         f"ms (host clock); K1 launches {cli_launches}")
     del ref
     return main_s
+
+
+EVAL_IMAGES = 40  # the eval phase's synthetic dataset: 2 full batches of 16 + 8 and 8 replicas
+EVAL_CONF = 0.05  # TrainConfig.eval_conf_thresh
+EVAL_SEG_PIXELS = 0.01  # share of the pixels by which "auto"'s and "off"'s seg_counts may differ
+
+
+def jax_evaluate_keys():
+    """The keys of the JAX ``cli/evaluate.py``'s metric dict (``ValidationMetrics
+    .compute(full_map=True)``): the six losses, the binary seg metrics, the
+    image-class metrics, and the numeric keys of the three mAP accumulators
+    (mask mAP at max-dets 1/10/100, box mAP50 and mAP50-95 at ``--map-thresholds
+    1 10 100``)."""
+    map_keys = (["map", "map_50", "map_75"] + [f"{m}_{a}" for m in ("map", "mar")
+                                                for a in ("small", "medium", "large")]
+                + [f"mar_{d}" for d in (1, 10, 100)])
+    keys = [f"loss_{k}" for k in ("total", "seg", "box_iou", "dfl", "cls_det", "img_cls")]
+    keys += [f"seg_{k}" for k in ("precision", "recall", "f1", "dice", "accuracy", "iou")]
+    keys += [f"img_{k}" for k in ("accuracy", "precision_macro", "recall_macro", "f1_macro")]
+    for prefix in ("seg_map_", "map_iou50_", "map_iou50_95_"):
+        keys += [prefix + k for k in map_keys]
+    return set(keys)
+
+
+def device_total_ms(fn, iters=5) -> float:
+    """Device time per call of ``fn``: every kernel's time under
+    ``torch.profiler`` over ``iters`` calls, after one warm-up call, summed
+    and divided by ``iters``: no per-kernel launch count is needed (which
+    :func:`kernel_split` checks, and fails on where the profiler drops
+    events)."""
+    fn()
+    torch.cuda.synchronize()
+    events, _ = device_events(lambda: [fn() for _ in range(iters)])
+    return sum(e.device_time for e in events) / 1e3 / iters
+
+
+@torch.no_grad()
+def condition_for_eval(state, images_u8):
+    """Raise the Detect head's class biases of ``state.model`` by one shift,
+    so that the eval forward (``train=False, mode="train"``; the BN running
+    statistics put back) of ``images_u8`` scores ~
+    ``CANDIDATES`` anchors per image above ``EVAL_CONF`` (random weights
+    score none above it: NMS would keep nothing). The shift moves every
+    class logit by the same amount (the bias is added after the last conv),
+    from the quantile score to ``EVAL_CONF``. Returns the shift."""
+    from multitask_bonetumor_yolo_tpu_torch.models.heads import decode_detections
+
+    model, cfg = state.model, state.model.cfg
+    snapshot = state.bn_snapshot()
+    out = model(images_u8.float() / 255.0, train=False, mode="train")
+    state.bn_restore(snapshot)
+    scores = decode_detections(out["det_feats"], cfg.nc_det, cfg.img_size,
+                               cfg.reg_max)[..., 4:].amax(-1)
+    q = torch.quantile(scores.float().flatten(), 1.0 - CANDIDATES / scores.shape[1]).item()
+    shift = float(torch.logit(torch.tensor(EVAL_CONF)) - torch.logit(torch.tensor(q)))
+    for i in range(3):
+        getattr(model.detect.towers, f"cv3_{i}_2").bias.add_(shift)
+    return shift
+
+
+def phase_eval(cnb, model, dev, card):
+    """The evaluation path on the card: a synthetic BTXRD dataset (40 PNGs,
+    320-960 px, ``rich``), phase 4's randomized weights conditioned so that
+    NMS keeps boxes at 0.05 and saved with ``CheckpointManager`` and the
+    trainer's ``config.json``; one batch-16 eval step under ``"auto"`` and
+    ``"off"`` (15 K1 launches per eval forward, losses, class logits and
+    the pre-NMS predictions within 3e-2, the seg probabilities held against
+    the fp32 eager forward as phase 4 holds them, seg_counts apart by at
+    most 1 % of the pixels, BN statistics bit for bit as they were); ``cli.evaluate.main`` in process
+    (two passes, the second from the device cache, equal to the first; the
+    JAX CLI's key set, finite; overlays that read back); "[eval-time]" and
+    "[evaluate]" beside the card. Returns K1's launches in ``main``."""
+    import numpy as np
+
+    from multitask_bonetumor_yolo_tpu_torch.cli import evaluate
+    from multitask_bonetumor_yolo_tpu_torch.data import (
+        BTXRD, BTXRDLoader, DataConfig, make_synthetic_btxrd, to_device)
+    from multitask_bonetumor_yolo_tpu_torch.data.imageio import read_png
+    from multitask_bonetumor_yolo_tpu_torch.losses import LossConfig
+    from multitask_bonetumor_yolo_tpu_torch.models.heads import decode_detections
+    from multitask_bonetumor_yolo_tpu_torch.train import (
+        CheckpointManager, TrainConfig, create_train_state, make_eval_step)
+
+    work = Path(__file__).resolve().parent / "build" / "eval"
+    if work.exists():
+        import shutil
+
+        shutil.rmtree(work)
+    t0 = time.perf_counter()
+    root = make_synthetic_btxrd(str(work / "data"), n=EVAL_IMAGES, seed=SEED, min_size=320,
+                                max_size=960, rich=True)
+    log(f"[eval] synthetic dataset: {EVAL_IMAGES} PNGs (320-960 px, rich) written in "
+        f"{time.perf_counter() - t0:.2f} s")
+    data_cfg = DataConfig(root=str(root), img_size=IMG, image_ext=".png", batch_size=BATCH)
+    ds = BTXRD(data_cfg, "all")
+    host = next(iter(BTXRDLoader(ds, BATCH, pad_last=True)))
+    batch = to_device(host, dev)
+
+    set_pallas(model, "auto")
+    cfg = model.cfg = dataclasses.replace(model.cfg, pallas="auto")
+    state = create_train_state(cfg, TrainConfig(), model=model)
+    shift = condition_for_eval(state, batch["image"])
+    loss_cfg = LossConfig(img_size=IMG, assigner="tal")
+    ckpt_dir = work / "checkpoints"
+    step_dir = CheckpointManager(str(ckpt_dir)).save(state, 1)
+    (ckpt_dir / "config.json").write_text(json.dumps({
+        "model": dataclasses.asdict(cfg), "loss": dataclasses.asdict(loss_cfg),
+        "data": {"img_size": IMG, "max_boxes": data_cfg.max_boxes,
+                 "upload_streams": data_cfg.upload_streams}}, indent=2, default=list))
+
+    step = make_eval_step(cfg, loss_cfg, TrainConfig())
+    out, bn_before = {}, [t.clone() for t in state.bn_stats()]
+    for mode in ("auto", "off"):
+        set_pallas(model, mode)
+        cnb.convnext_block.launches = 0
+        metrics, aux = step(state, batch)
+        torch.cuda.synchronize()
+        want = 15 if mode == "auto" else 0
+        if cnb.convnext_block.launches != want:
+            raise RuntimeError(f"[eval] pallas={mode}: K1 launched {cnb.convnext_block.launches} "
+                               f"times per eval forward, want {want}")
+        if not all(torch.equal(a, b) for a, b in zip(state.bn_stats(), bn_before)):
+            raise RuntimeError(f"[eval] pallas={mode}: the eval step moved the BN statistics")
+        with torch.inference_mode():
+            snap = state.bn_snapshot()
+            raw = model(batch["image"].float() / 255.0, train=False, mode="train")
+            state.bn_restore(snap)
+            preds = decode_detections(raw["det_feats"], cfg.nc_det, IMG, cfg.reg_max)
+        out[mode] = (metrics, aux, preds)
+    (m_auto, a_auto, p_auto), (m_off, a_off, p_off) = out["auto"], out["off"]
+    for k in m_auto:
+        check_close(f"[eval] {k} auto vs off", m_auto[k], m_off[k], BF16_TOL)
+    err_logits = check_close("[eval] cls_logits auto vs off", a_auto["cls_logits"],
+                             a_off["cls_logits"], BF16_TOL)
+    scale = torch.tensor([IMG] * 4 + [1] * cfg.nc_det, device=dev)
+    err_preds = check_close("[eval] det_preds auto vs off", p_auto / scale, p_off / scale,
+                            BF16_TOL)
+    # the seg probabilities: K1 adds no error beyond bf16 rounding, as in
+    # phase 4: against the fp32 eager eval forward, the kernel path may be
+    # at most 2x as far as the bf16 eager path (plus 1e-3). The head BNs
+    # normalise with this batch's statistics, which amplifies the bf16
+    # rounding of both paths: with random weights on an H100 the two paths
+    # came 6.2e-2 apart, where phase 4's inference forward stays within 3e-2.
+    with torch.inference_mode():
+        model.cfg = dataclasses.replace(cfg, dtype="float32")
+        snap = state.bn_snapshot()
+        ref32 = torch.sigmoid(model(batch["image"].float() / 255.0, train=False,
+                                    mode="train")["seg_logits"])
+        state.bn_restore(snap)
+        model.cfg = cfg
+    e_auto = (a_auto["seg_prob"] - ref32).abs().max().item()
+    e_off = (a_off["seg_prob"] - ref32).abs().max().item()
+    err_prob = (a_auto["seg_prob"] - a_off["seg_prob"]).abs().max().item()
+    if e_auto > 2.0 * e_off + 1e-3:
+        raise RuntimeError(f"[eval] seg_prob: K1 path {e_auto:.3e} from fp32, eager bf16 "
+                           f"{e_off:.3e}, bound {2.0 * e_off + 1e-3:.3e}")
+    near = ((a_off["seg_prob"][..., 0] - 0.5).abs() <= 1.5 * BF16_TOL).float().mean().item()
+    seg_apart = (a_auto["seg_mask"] != a_off["seg_mask"]).float().mean().item()
+    count_apart = ((a_auto["seg_counts"] - a_off["seg_counts"]).abs().sum() / 2
+                   / a_off["seg_counts"].sum()).item()
+    if count_apart > EVAL_SEG_PIXELS:
+        raise RuntimeError(f"[eval] seg_counts of auto and off differ in {count_apart:.3%} of "
+                           f"the pixels, more than {EVAL_SEG_PIXELS:.0%}")
+    kept = a_auto["nms_valid"].sum(1)
+    if not bool((kept > 0).all()) or int(a_auto["cm_counts"].sum()) == 0:
+        raise RuntimeError(f"[eval] NMS kept {kept.tolist()} boxes per image, cm_counts "
+                           f"{a_auto['cm_counts'].tolist()}: the conditioning failed")
+    log(f"[eval] class-bias shift {shift:.3f}; batch-{BATCH} eval step, auto vs off: losses "
+        + ", ".join(f"{k} {m_auto[k].item():.5g}/{m_off[k].item():.5g}" for k in m_auto)
+        + f"; cls_logits max_abs_err {err_logits:.3e}, det_preds (boxes in image sides) "
+        f"{err_preds:.3e} (atol/rtol {BF16_TOL}); seg_prob {err_prob:.3e} apart, from the "
+        f"fp32 eager forward {e_auto:.3e} (auto) / {e_off:.3e} (off); seg_counts apart "
+        f"{count_apart:.4%} of the pixels (limit {EVAL_SEG_PIXELS:.0%}); seg mask pixels "
+        f"flipped {seg_apart:.4%}, of {near:.2%} within {1.5 * BF16_TOL:.3g} of 0.5; NMS kept "
+        f"{kept.tolist()}; cm_counts {a_auto['cm_counts'].tolist()}; BN statistics unchanged")
+
+    times, dev_ms = {}, {}
+    for mode in ("auto", "off", "off", "auto"):
+        set_pallas(model, mode)
+        times.setdefault(mode, []).append(cuda_ms(lambda: step(state, batch), iters=10,
+                                                  warmup=2))
+    for mode in ("auto", "off"):
+        set_pallas(model, mode)
+        dev_ms[mode] = device_total_ms(lambda: step(state, batch))
+    set_pallas(model, "auto")
+    log(f"[eval-time] batch-{BATCH} {IMG}^2 bf16 eval step (forward train=False mode=train, "
+        f"TAL loss, decode, NMS at {EVAL_CONF}, seg and CM counts; CUDA events, two turns; "
+        f"profiler device time): " + ", ".join(
+            f"pallas={m} {times[m]} ms (mean {sum(times[m]) / 2:.3f}; device "
+            f"{dev_ms[m]:.3f})" for m in ("auto", "off")) + f"; {card}")
+    del state, step, batch, out, m_auto, a_auto, p_auto, m_off, a_off, p_off
+
+    # the host's work of pass 1 alone: read, letterbox and copy every batch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in BTXRDLoader(ds, BATCH, pad_last=True):
+        to_device(b, dev)
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+
+    run_dir = work / "run"
+    torch.cuda.reset_peak_memory_stats()
+    cnb.convnext_block.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as printed:
+        metrics = evaluate.main([
+            "--checkpoint-path", str(step_dir), "--root", str(root), "--split", "all",
+            "--batch-size", str(BATCH), "--image-ext", ".png", "--epochs", "2",
+            "--log-examples", "--map-thresholds", "1", "10", "100", "--run-dir", str(run_dir)])
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    launches = cnb.convnext_block.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    batches = -(-EVAL_IMAGES // BATCH)
+    if launches != 2 * batches * 15:
+        raise RuntimeError(f"[evaluate] main launched K1 {launches} times, want "
+                           f"{2 * batches * 15} (2 passes x {batches} batches x 15)")
+    if set(metrics) != jax_evaluate_keys():
+        raise RuntimeError(f"[evaluate] keys differ from the JAX CLI's: "
+                           f"{sorted(set(metrics) ^ jax_evaluate_keys())}")
+    if not all(np.isfinite(v) for v in metrics.values()):
+        raise RuntimeError(f"[evaluate] non-finite metrics: {metrics}")
+    passes = [json.loads(line) for line in (run_dir / "metrics.jsonl").open()
+              if '"test_pass/pass"' in line]
+    if len(passes) != 2:
+        raise RuntimeError(f"[evaluate] {len(passes)} pass records, want 2")
+    p1, p2 = ({k.split("/", 1)[1]: v for k, v in p.items() if k.startswith("test_pass/")}
+              for p in passes)
+    for k in metrics:
+        if abs(p2[k] - p1[k]) > 1e-5 * max(abs(p1[k]), 1e-12) or p2[k] != metrics[k]:
+            raise RuntimeError(f"[evaluate] {k}: pass 2 (replayed) {p2[k]} != pass 1 {p1[k]}")
+    overlays = sorted((run_dir / "media").glob("*.png"))
+    if len(overlays) < 8:
+        raise RuntimeError(f"[evaluate] {len(overlays)} overlays written, want 8")
+    for path in overlays:
+        if read_png(path).shape != (IMG, IMG, 3):
+            raise RuntimeError(f"[evaluate] overlay {path.name} does not read back")
+    log(f"[evaluate] cli.evaluate.main over {EVAL_IMAGES} PNGs ({batches} batches of {BATCH}, "
+        f"2 passes) in {main_s:.3f} s (checkpoint restore included): pass 1 "
+        f"{p1['seconds']:.3f} s ({EVAL_IMAGES / p1['seconds']:.1f} img/s), its host work "
+        f"(read PNG, letterbox, copy; measured alone) {host_s:.3f} s "
+        f"({EVAL_IMAGES / host_s:.1f} img/s, {host_s / p1['seconds']:.1%} of pass 1); pass 2 "
+        f"from the device cache {p2['seconds']:.3f} s ({EVAL_IMAGES / p2['seconds']:.1f} "
+        f"img/s), equal to pass 1; {len(metrics)} keys as the JAX CLI's, finite; "
+        f"{len(overlays)} overlays read back; K1 launches {launches}; peak device memory "
+        f"{peak:.2f} GiB; {card}")
+    log("[evaluate] metrics " + json.dumps({k: metrics[k] for k in sorted(metrics)}))
+    if "[evaluate] pass 2" not in printed.getvalue():
+        raise RuntimeError("[evaluate] main printed no second pass")
+    return launches
 
 
 def check_grads(name, got, want, tol):
@@ -1667,21 +1936,21 @@ def timed_build(name):
     return path, report, time.perf_counter() - t0
 
 
-PHASES = ("kernel", "model", "infer-cli", "k2", "k2-split", "train", "k3", "k4", "k4-split",
-          "fwdbwd", "lab")
+PHASES = ("kernel", "model", "infer-cli", "eval", "k2", "k2-split", "train", "k3", "k4",
+          "k4-split", "fwdbwd", "lab")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the port on one GPU")
     ap.add_argument("--only", default="",
                     help="comma-separated phases to run, in the full run's order (of "
-                         + ", ".join(PHASES) + "; infer-cli brings model with it); a partial "
-                         "run prints no kernels line and no result line")
+                         + ", ".join(PHASES) + "; infer-cli and eval bring model with them); "
+                         "a partial run prints no kernels line and no result line")
     args = ap.parse_args(argv)
     only = set(filter(None, args.only.split(",")))
     if only - set(PHASES):
         raise SystemExit(f"unknown phases {sorted(only - set(PHASES))}")
-    if "infer-cli" in only:  # it serves the model phase's model
+    if only & {"infer-cli", "eval"}:  # they take the model phase's model
         only.add("model")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -1724,14 +1993,19 @@ def main(argv=None) -> int:
     r = {}  # each phase's result, by phase
 
     def infer_cli():
-        launches, model, conf = r["model"]
-        r["model"] = (launches,)  # the served model is freed before the train phases
+        _, model, conf = r["model"]
         return phase_infer_cli(cnb, model, conf, dev, gen)
+
+    def eval_phase():
+        launches, model, _ = r["model"]
+        r["model"] = (launches,)  # the served model is freed before the train phases
+        return phase_eval(cnb, model, dev, card)
 
     table = (
         ("kernel", lambda: phase_kernel(cnb, dev, gen)),
         ("model", lambda: phase_model(cnb, dev, gen)),
         ("infer-cli", infer_cli),
+        ("eval", eval_phase),
         ("k2", lambda: phase_training_kernels(cnb, k2, dev, gen)),
         ("k2-split", lambda: phase_k2_split(cnb, k2, dev, gen)),
         ("train", lambda: phase_train(cnb, k2, dev, gen)),
@@ -1754,6 +2028,7 @@ def main(argv=None) -> int:
 
     max_err, per_stage, k_ms, p_ms = r["kernel"]
     launches = r["model"][0]
+    eval_launches = r["eval"]
     err_sav, err_dx, err_scale, bwd_stages, tot = r["k2"]
     k2_split = r["k2-split"]
     _, n_saving, n_bwd = r["train"]
@@ -1769,7 +2044,8 @@ def main(argv=None) -> int:
         {"name": "convnext_block", **common,
          "source": "multitask_bonetumor_yolo_tpu_torch/csrc/convnext_block.cu",
          "replaces": "multitask_bonetumor_yolo_tpu/ops/pallas/convnext_block.py:165",
-         "launches": launches, "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms,
+         "launches": launches, "eval_launches": eval_launches,
+         "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms,
          "first_design_ms": sum(d * row["first_design_ms"]
                                 for (_, _, d), row in zip(STAGES, per_stage)),
          "bound_ms": infer_bound[0], "bound_by": infer_bound[1], "per_stage": per_stage},

@@ -28,7 +28,7 @@ import torch
 
 from ..bridge import flax_to_torch, load_npz
 from ..core.letterbox import PAD_VALUE, letterbox_geometry
-from ..data.imageio import read_png, resize_bilinear_u8
+from ..data.imageio import read_image, resize_bilinear_u8
 from ..models import ModelConfig, MultitaskModel
 from ..ops.masks import compose_masks
 from ..ops.nms import NMSResult, postprocess_detections
@@ -68,33 +68,10 @@ def infer_batch(
     return InferResult(out, det, inst)
 
 
-def _imread_color_rgb(path: str) -> np.ndarray:
-    """uint8 [H, W, 3] RGB. A ``.png`` is read by the port's own codec on
-    every machine; any other file by cv2, else PIL, and without either it
-    raises: there is no substitute decoder."""
-    if Path(path).suffix.lower() == ".png":
-        return read_png(path)
-    try:
-        import cv2
-    except ImportError:
-        try:
-            from PIL import Image
-        except ImportError:
-            raise ImportError(
-                f"{path}: reading a {Path(path).suffix or 'suffix-less'} image needs cv2 or "
-                "PIL, and neither is installed; the port reads PNG itself "
-                "(data/imageio.py::read_png): pass .png files") from None
-        return np.asarray(Image.open(path).convert("RGB"))
-    img = cv2.imread(path)
-    if img is None:
-        raise FileNotFoundError(f"Image not found or corrupted: {path}")
-    return cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
-
-
 def load_and_letterbox(path: str, img_size: int) -> np.ndarray:
     """Top-left letterbox with gray(114) padding, uint8 [S, S, 3]; the resize
     is always the port's own (cv2's ``INTER_LINEAR``, within 1 LSB)."""
-    img = _imread_color_rgb(path)
+    img = read_image(path)
     h0, w0 = img.shape[:2]
     _, nh, nw = letterbox_geometry(h0, w0, img_size)
     canvas = np.full((img_size, img_size, 3), PAD_VALUE, np.uint8)

@@ -5,7 +5,9 @@ from .boxes import (
     box_cxcywh_to_xyxy,
     box_xyxy_to_cxcywh,
     box_iou_matrix,
+    box_iou_pairwise,
     dist2bbox,
+    bbox2dist,
 )
 from .dfl import dfl_decode, dfl_targets
 from .letterbox import letterbox_geometry, scale_boxes_to_letterbox, PAD_VALUE
@@ -17,7 +19,9 @@ __all__ = [
     "box_cxcywh_to_xyxy",
     "box_xyxy_to_cxcywh",
     "box_iou_matrix",
+    "box_iou_pairwise",
     "dist2bbox",
+    "bbox2dist",
     "dfl_decode",
     "dfl_targets",
     "letterbox_geometry",

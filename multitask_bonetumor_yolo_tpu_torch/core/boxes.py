@@ -40,6 +40,20 @@ def box_iou_matrix(
     return inter / (union + eps)
 
 
+def box_iou_pairwise(
+    boxes1: torch.Tensor, boxes2: torch.Tensor, eps: float = 1e-7
+) -> torch.Tensor:
+    """Elementwise IoU of aligned xyxy boxes: (..., 4) x (..., 4) -> (...)."""
+    inter_x1 = torch.maximum(boxes1[..., 0], boxes2[..., 0])
+    inter_y1 = torch.maximum(boxes1[..., 1], boxes2[..., 1])
+    inter_x2 = torch.minimum(boxes1[..., 2], boxes2[..., 2])
+    inter_y2 = torch.minimum(boxes1[..., 3], boxes2[..., 3])
+    inter = (inter_x2 - inter_x1).clamp(min=0) * (inter_y2 - inter_y1).clamp(min=0)
+    area1 = (boxes1[..., 2] - boxes1[..., 0]) * (boxes1[..., 3] - boxes1[..., 1])
+    area2 = (boxes2[..., 2] - boxes2[..., 0]) * (boxes2[..., 3] - boxes2[..., 1])
+    return inter / (area1 + area2 - inter + eps)
+
+
 def dist2bbox(
     distance: torch.Tensor, anchor_points: torch.Tensor, box_format: str = "xyxy"
 ) -> torch.Tensor:
@@ -52,3 +66,17 @@ def dist2bbox(
     if box_format == "xywh":
         return torch.cat([(x1y1 + x2y2) * 0.5, x2y2 - x1y1], dim=-1)
     raise NotImplementedError(f"box_format {box_format!r}")
+
+
+def bbox2dist(
+    anchor_points: torch.Tensor,
+    boxes_xyxy: torch.Tensor,
+    reg_max: int,
+    clamp_hi_delta: float = 1.01,
+) -> torch.Tensor:
+    """Inverse of :func:`dist2bbox`: ltrb distances of ``boxes_xyxy`` from
+    ``anchor_points``, clipped to [0, reg_max - clamp_hi_delta] (the DFL
+    target range; callers pass stride-normalised anchors and boxes)."""
+    lt = anchor_points - boxes_xyxy[..., :2]
+    rb = boxes_xyxy[..., 2:] - anchor_points
+    return torch.cat([lt, rb], dim=-1).clamp(0.0, reg_max - clamp_hi_delta)

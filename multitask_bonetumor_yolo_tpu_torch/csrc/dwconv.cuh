@@ -61,15 +61,18 @@
 
 #include <cuda.h>
 
+#include <atomic>
+
 #include "cuda_common.cuh"
 
 namespace cnb {
 namespace dwc {
 // Internal linkage: every library that includes this header (K3's and K4's)
-// keeps its own copy, above all of the function-local statics in Inst and
-// encode_tiled. With external linkage those statics are unique symbols that
-// the dynamic loader merges across libraries, so the second library loaded
-// would skip setting the shared-memory attribute of its own kernels.
+// keeps its own copy, above all of the function-local statics in Inst,
+// sm_count and encode_tiled. With external linkage those statics are unique
+// symbols that the dynamic loader merges across libraries, so the second
+// library loaded would skip setting the shared-memory attribute of its own
+// kernels.
 namespace {
 
 constexpr int BAND = 7;       // input rows per ring stage = the accumulator period
@@ -356,37 +359,58 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// Per dtype: the shared-memory attribute, set once (at the widest strip),
-// and the CTAs that fit per SM at each warp count, asked once
+constexpr int MAX_DEVICES = 64;  // device ordinals the per-device caches below hold
+
+// The current device's ordinal, or -1 (none, or past MAX_DEVICES)
+inline int current_device() {
+  int dev = -1;
+  return cudaGetDevice(&dev) == cudaSuccess && dev >= 0 && dev < MAX_DEVICES ? dev : -1;
+}
+
+// Per dtype and per device: the shared-memory attribute, set once (at the
+// widest strip) on each device, and the CTAs that fit per SM at each warp
+// count, asked once on each device. A kernel's attribute belongs to the
+// device that was current when it was set: a process that launches on a
+// second card must set it there too. A slot at 0 is not done yet.
 template <typename T>
 struct Inst {
   static int prepare() {
-    static const int rc = int(cudaFuncSetAttribute(cnb_dwconv7_kernel<T>,
-                                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                   smem_bytes(MAX_WARPS * PX, int(sizeof(T)))));
+    static std::atomic<int> done[MAX_DEVICES];
+    const int dev = current_device();
+    if (dev < 0) return int(cudaErrorInvalidDevice);
+    if (done[dev].load(std::memory_order_acquire)) return 0;
+    const int rc = int(cudaFuncSetAttribute(cnb_dwconv7_kernel<T>,
+                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                            smem_bytes(MAX_WARPS * PX, int(sizeof(T)))));
+    if (!rc) done[dev].store(1, std::memory_order_release);
     return rc;
   }
   static int ctas_per_sm(int warps) {
-    static int occ[MAX_WARPS + 1] = {};
-    if (!occ[warps]) {
-      int n = 0;
+    static std::atomic<int> occ[MAX_DEVICES][MAX_WARPS + 1];
+    const int dev = current_device();
+    if (dev < 0) return 0;
+    int n = occ[dev][warps].load(std::memory_order_relaxed);
+    if (!n) {
       if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, cnb_dwconv7_kernel<T>, warps * 32,
                                                         smem_bytes(warps * PX, int(sizeof(T)))) !=
           cudaSuccess)
         return 0;
-      occ[warps] = n;
+      occ[dev][warps].store(n, std::memory_order_relaxed);
     }
-    return occ[warps];
+    return n;
   }
 };
 
 inline int sm_count() {
-  static int sms[64] = {};
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
-  if (!sms[dev] && cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-    return 0;
-  return sms[dev];
+  static std::atomic<int> sms[MAX_DEVICES];
+  const int dev = current_device();
+  if (dev < 0) return 0;
+  int n = sms[dev].load(std::memory_order_relaxed);
+  if (!n) {
+    if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) return 0;
+    sms[dev].store(n, std::memory_order_relaxed);
+  }
+  return n;
 }
 
 // The plan on the current device; returns a CUDA error, or 0

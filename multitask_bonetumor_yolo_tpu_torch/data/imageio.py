@@ -11,8 +11,14 @@ interpolation=cv2.INTER_LINEAR)`` computes:
     names what it does not take.
   * :func:`write_png` — uint8 ``[H, W]``, ``[H, W, 1]``, ``[H, W, 3]`` or
     ``[H, W, 4]`` to a PNG (filter 0 on every row).
-  * :func:`resize_bilinear_u8` — cv2's ``INTER_LINEAR`` geometry and its
-    fixed-point arithmetic.
+  * :func:`read_png_gray` — the same files as uint8 ``[H, W]`` grey, as
+    ``cv2.imread(path, cv2.IMREAD_GRAYSCALE)`` reads them.
+  * :func:`read_image` / :func:`read_mask` — any image file as RGB / grey:
+    a PNG through the codec above, other formats through cv2, else PIL, and
+    without either an ``ImportError`` that names the PNG route.
+  * :func:`resize_bilinear_u8` / :func:`resize_nearest_u8` — cv2's
+    ``INTER_LINEAR`` (geometry and fixed-point arithmetic) and
+    ``INTER_NEAREST``.
 
 JPEG is not read here: a baseline decoder in numpy would be a Huffman loop
 in Python, too slow to serve from.
@@ -22,6 +28,7 @@ from __future__ import annotations
 
 import struct
 import zlib
+from pathlib import Path
 
 import numpy as np
 
@@ -74,9 +81,8 @@ def _unfilter(raw: np.ndarray, h: int, w: int, n: int) -> np.ndarray:
     return rec[1:, 1:].astype(np.uint8)
 
 
-def read_png(path) -> np.ndarray:
-    """The PNG at ``path`` as uint8 ``[H, W, 3]`` RGB (grey repeated to three
-    channels, alpha dropped)."""
+def _decode_png(path) -> np.ndarray:
+    """The PNG at ``path`` as uint8 ``[H, W, n]``, n its samples per pixel."""
     with open(path, "rb") as f:
         data = f.read()
     if not data.startswith(_SIGNATURE):
@@ -105,10 +111,64 @@ def read_png(path) -> np.ndarray:
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
     if raw.size != h * (1 + w * n):
         raise ValueError(f"{path}: PNG image data holds {raw.size} bytes, want {h * (1 + w * n)}")
-    img = _unfilter(raw, h, w, n)
-    if n <= 2:  # grey (+ alpha)
+    return _unfilter(raw, h, w, n)
+
+
+def read_png(path) -> np.ndarray:
+    """The PNG at ``path`` as uint8 ``[H, W, 3]`` RGB (grey repeated to three
+    channels, alpha dropped)."""
+    img = _decode_png(path)
+    if img.shape[2] <= 2:  # grey (+ alpha)
         return np.repeat(img[..., :1], 3, axis=2)
     return np.ascontiguousarray(img[..., :3])
+
+
+def read_png_gray(path) -> np.ndarray:
+    """The PNG at ``path`` as uint8 ``[H, W]`` grey: a grey PNG's samples, a
+    colour one converted as cv2's ``COLOR_RGB2GRAY`` does (fixed point,
+    (4899 R + 9617 G + 1868 B + 2^13) >> 14), alpha dropped."""
+    img = _decode_png(path)
+    if img.shape[2] <= 2:
+        return np.ascontiguousarray(img[..., 0])
+    rgb = img[..., :3].astype(np.int32)
+    return ((rgb @ np.asarray([4899, 9617, 1868], np.int32) + (1 << 13)) >> 14).astype(np.uint8)
+
+
+def _other_format(path: str, gray: bool) -> np.ndarray:
+    """A non-PNG image through cv2, else PIL; without either it raises:
+    there is no substitute decoder."""
+    try:
+        import cv2
+    except ImportError:
+        try:
+            from PIL import Image
+        except ImportError:
+            raise ImportError(
+                f"{path}: reading a {Path(path).suffix or 'suffix-less'} image needs cv2 or "
+                "PIL, and neither is installed; the port reads PNG itself "
+                "(data/imageio.py::read_png): pass .png files") from None
+        return np.asarray(Image.open(path).convert("L" if gray else "RGB"))
+    img = cv2.imread(path, cv2.IMREAD_GRAYSCALE if gray else cv2.IMREAD_COLOR)
+    if img is None:
+        raise FileNotFoundError(f"Image not found or corrupted: {path}")
+    return img if gray else cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
+
+
+def read_image(path) -> np.ndarray:
+    """uint8 ``[H, W, 3]`` RGB. A ``.png`` is read by the port's own codec on
+    every machine; any other file by cv2, else PIL."""
+    path = str(path)
+    if Path(path).suffix.lower() == ".png":
+        return read_png(path)
+    return _other_format(path, gray=False)
+
+
+def read_mask(path) -> np.ndarray:
+    """uint8 ``[H, W]`` grey, as :func:`read_image` picks the decoder."""
+    path = str(path)
+    if Path(path).suffix.lower() == ".png":
+        return read_png_gray(path)
+    return _other_format(path, gray=True)
 
 
 def _chunk(kind: bytes, body: bytes) -> bytes:
@@ -176,3 +236,15 @@ def resize_bilinear_u8(img: np.ndarray, w: int, h: int) -> np.ndarray:
     ver = (slice(None), None) + extra
     out = (((row[y0] >> 4) * b0[ver]) >> 16) + (((row[y1] >> 4) * b1[ver]) >> 16)
     return np.clip((out + 2) >> 2, 0, 255).astype(np.uint8)
+
+
+def resize_nearest_u8(img: np.ndarray, w: int, h: int) -> np.ndarray:
+    """``img`` (``[H, W]`` or ``[H, W, C]``) resized to ``h`` x ``w`` as
+    ``cv2.resize(img, (w, h), interpolation=cv2.INTER_NEAREST)`` does it:
+    output x takes source ``min(floor(x / (w / W)), W - 1)`` (the scale's
+    inverse in double, as cv2 computes it), and the same in y."""
+    img = np.asarray(img)
+    src_h, src_w = img.shape[:2]
+    xs = np.minimum(np.floor(np.arange(w) * (1.0 / (w / src_w))).astype(np.int64), src_w - 1)
+    ys = np.minimum(np.floor(np.arange(h) * (1.0 / (h / src_h))).astype(np.int64), src_h - 1)
+    return np.ascontiguousarray(img[ys][:, xs])

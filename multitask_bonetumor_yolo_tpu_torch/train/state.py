@@ -32,8 +32,9 @@ ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """The optimizer fields of the JAX ``TrainConfig`` (the trainer loop's
-    fields come with the loop)."""
+    """The JAX ``TrainConfig``'s fields and defaults: the optimizer's, the
+    trainer loop's (early stopping, checkpoints) and the evaluation's (NMS
+    thresholds of ``make_eval_step``)."""
 
     lr: float = 1e-4
     weight_decay: float = 5e-4
@@ -42,6 +43,14 @@ class TrainConfig:
     grad_clip: float = 10.0
     cosine_alpha: float = 0.01  # eta_min = lr * alpha
     seed: int = 123
+    early_stop_patience: int = 50  # epochs without mAP50 improvement
+    map_full_freq: int = 5  # epochs between full mAP50-95 computes
+    ckpt_dir: str = "checkpoints"
+    ckpt_top_k: int = 2
+    save_last_every: int = 5  # epochs between unconditional 'last' saves
+    eval_conf_thresh: float = 0.05
+    eval_nms_iou: float = 0.6
+    eval_top_k: int = 100
 
     @property
     def decay_steps(self) -> int:
@@ -92,8 +101,15 @@ class TrainState:
                 if name.endswith(("running_mean", "running_var"))]
 
     def bn_snapshot(self) -> torch.Tensor:
-        """A flat copy of :meth:`bn_stats`, for :meth:`apply_gradients`."""
+        """A flat copy of :meth:`bn_stats`, for :meth:`apply_gradients` and
+        :meth:`bn_restore`."""
         return _flat(self.bn_stats())
+
+    @torch.no_grad()
+    def bn_restore(self, snapshot: torch.Tensor) -> None:
+        """Put :meth:`bn_snapshot`'s values back into the BN running
+        statistics (in place, bit for bit)."""
+        _write(self.bn_stats(), snapshot)
 
     @torch.no_grad()
     def apply_gradients(self, grads: List[Optional[torch.Tensor]],

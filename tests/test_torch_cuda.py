@@ -179,6 +179,22 @@ def test_bwd_kernel_matches_plain(dev, shape, dtype, tol):
         assert torch.equal(a, b)
 
 
+def profiled(run, attempts=4):
+    """``run()`` under ``torch.profiler`` and the names of the device kernels
+    it launched. The profiler can come back with no device event at all for
+    a call that launched kernels (seen on the H100 machine; ``chip_smoke.py
+    ::device_events`` handles it the same way): such a profile is taken
+    again, up to ``attempts`` profiles."""
+    for _ in range(attempts):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            out = run()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
+    return out, names
+
+
 @pytest.mark.parametrize("c", [48, 96, 192, 384])
 def test_bwd_hopper_pipeline_launches(dev, c):
     """A bf16 call up to C = 384 runs K2's Hopper pipeline: at most five
@@ -193,11 +209,7 @@ def test_bwd_hopper_pipeline_launches(dev, c):
     ops = cnb.kernel_operands(params, x.dtype, backward=True)
     first = k2.convnext_block_bwd(x, y, g, *params, ops=ops)
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        second = k2.convnext_block_bwd(x, y, g, *params, ops=ops)
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    second, names = profiled(lambda: k2.convnext_block_bwd(x, y, g, *params, ops=ops))
     assert 0 < len(names) <= 5 and all("k2_" in n or "cnb_bwd_" in n for n in names), names
     for a, b in zip(first, second):
         assert torch.equal(a, b)
@@ -342,11 +354,7 @@ def test_bwd_v1_hopper_pipeline(dev, c):
     want = k2.convnext_block_bwd_v1_plain(x, g, *params)
     torch.cuda.synchronize()
     check_bwd(first, want, 3e-2)
-    acts = [torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        second = k2.convnext_block_bwd_v1(x, g, *params)
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    second, names = profiled(lambda: k2.convnext_block_bwd_v1(x, g, *params))
     assert 0 < len([n for n in names if "k2_" in n or "cnb_" in n]) <= 5, names
     for a, b in zip(first, second):
         assert torch.equal(a, b)
@@ -517,3 +525,138 @@ def test_lab_raises_on_what_it_does_not_take(dev):
     with pytest.raises(ValueError, match="w1'"):  # the Hopper operands transposed
         k5.lab_variant("mlp", x, *ops[:3], wt=(ops[4][1], ops[4][0]))
     assert (k5.lab_variant.launches, k5.lab_variant_v0.launches) == before
+
+
+def test_k3_and_k4_setup_on_every_card(dev):
+    """K3's one-time setup (the fp32 plan's 51,904 bytes of dynamic shared
+    memory, above the 48 KB default, and the CTAs per SM) is made on each
+    card: fp32 ``dwconv7`` and fp32 ``convnext_block_bwd_v1`` (whose first
+    design recomputes y through K3's device code, in its own library)
+    against their plain versions on every visible card, the last card first
+    and card 0 last. On one card this is the single-card case."""
+    for i in range(torch.cuda.device_count() - 1, -1, -1):
+        d = torch.device("cuda", i)
+        rs = np.random.RandomState(20 + i)
+        x = torch.from_numpy(rs.randn(2, 40, 40, 96).astype(np.float32)).to(d)
+        taps = torch.from_numpy(rs.randn(7, 7, 96).astype(np.float32) * 0.1).to(d)
+        assert k3.library_plan(2, 40, 40, 96, torch.float32)["smem"] > 48 * 1024
+        before = k3.dwconv7.launches
+        got = k3.dwconv7(x, taps)
+        torch.testing.assert_close(got, k3.dwconv7_plain(x, taps), atol=1e-4, rtol=1e-4)
+        x, *params = block_args(21 + i, 1, 13, 21, 96, torch.float32, d)
+        g = torch.randn(x.shape, generator=torch.Generator(d).manual_seed(i), device=d)
+        got_bwd = k2.convnext_block_bwd_v1(x, g, *params)
+        check_bwd(got_bwd, k2.convnext_block_bwd_v1_plain(x, g, *params), 1e-2)
+        torch.cuda.synchronize(d)
+        assert k3.dwconv7.launches == before + 1
+        assert got.device == d and got_bwd[0].device == d
+
+
+def perturbed_model(cfg, seed=0):
+    """The port's seeded model at ``cfg`` on the CPU with every parameter and
+    BN statistic perturbed (running variances x U(0.7, 1.4), the rest
+    + 0.05 N(0, 1), as the JAX-held tests do) and the Detect head's class
+    biases raised by 6, so that NMS at 0.05 keeps boxes."""
+    from multitask_bonetumor_yolo_tpu_torch.models import build_model
+
+    model = build_model(cfg, seed=seed, device="cpu")
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, t in list(model.named_parameters()) + list(model.named_buffers()):
+            if name.endswith("num_batches_tracked"):
+                continue
+            if name.endswith("running_var"):
+                t.mul_(torch.rand(t.shape, generator=gen) * 0.7 + 0.7)
+            else:
+                t.add_(0.05 * torch.randn(t.shape, generator=gen))
+        for i in range(3):
+            getattr(model.detect.towers, f"cv3_{i}_2").bias.add_(6.0)
+    return model
+
+
+EVAL_CFG = dict(nc_det=2, nc_img=2, proto_ch=8, bifpn_feature_size=64, bifpn_num_layers=2,
+                img_size=160, dtype="float32", pallas="auto",
+                backbone_depths=(1, 1, 2, 1), backbone_dims=(16, 32, 48, 64))
+
+
+def test_eval_step_on_card_matches_cpu(dev, tmp_path):
+    """``make_eval_step`` at the oracle config with ``pallas="auto"`` (K1 on
+    every stage on the card, 5 launches; the eager block on the CPU), fp32,
+    the TAL assigner, on a padded batch of the synthetic PNG dataset: losses
+    and class logits within 1e-2 (K1's products run in TF32), under 1 % of
+    the seg-mask pixels differing, the top NMS box of each image within
+    0.5 px, the BN running statistics unchanged on both."""
+    import copy
+
+    from multitask_bonetumor_yolo_tpu_torch.data import (BTXRD, BTXRDLoader, DataConfig,
+                                                         make_synthetic_btxrd, to_device)
+    from multitask_bonetumor_yolo_tpu_torch.losses import LossConfig
+    from multitask_bonetumor_yolo_tpu_torch.models import ModelConfig
+    from multitask_bonetumor_yolo_tpu_torch.train import (TrainConfig, create_train_state,
+                                                          make_eval_step)
+
+    cfg = ModelConfig(**EVAL_CFG)
+    root = make_synthetic_btxrd(str(tmp_path / "d"), n=3, seed=1, min_size=160, max_size=160,
+                                rich=True)
+    ds = BTXRD(DataConfig(root=str(root), img_size=160, image_ext=".png", max_boxes=8), "all")
+    batch = next(iter(BTXRDLoader(ds, 4, pad_last=True)))
+    step = make_eval_step(cfg, LossConfig(img_size=160, assigner="tal"), TrainConfig())
+    model = perturbed_model(cfg)
+    outs = {}
+    for where in ("cpu", dev):
+        state = create_train_state(cfg, TrainConfig(), model=copy.deepcopy(model).to(where))
+        bn = [t.clone() for t in state.bn_stats()]
+        before = cnb.convnext_block.launches
+        metrics, aux = step(state, to_device(batch, where))
+        torch.cuda.synchronize()
+        assert cnb.convnext_block.launches - before == (5 if where == dev else 0)
+        assert all(torch.equal(a, b) for a, b in zip(state.bn_stats(), bn))
+        outs[str(where)] = ({k: v.cpu() for k, v in metrics.items()},
+                            {k: v.cpu() for k, v in aux.items()})
+    (want_m, want), (got_m, got) = outs["cpu"], outs[str(dev)]
+    for k in want_m:
+        torch.testing.assert_close(got_m[k], want_m[k], rtol=1e-2, atol=1e-3, msg=k)
+    torch.testing.assert_close(got["cls_logits"], want["cls_logits"], rtol=1e-2, atol=1e-2)
+    assert (got["seg_mask"] != want["seg_mask"]).float().mean() < 0.01
+    assert want["cm_counts"].sum() > 0 and bool(want["nms_valid"][:, 0].all())
+    assert torch.equal(got["nms_valid"][:, 0], want["nms_valid"][:, 0])
+    torch.testing.assert_close(got["nms_boxes"][:, 0], want["nms_boxes"][:, 0], atol=0.5, rtol=0)
+
+
+def test_cli_evaluate_on_card(dev, tmp_path):
+    """``cli.evaluate.main`` on the card over a 4-image PNG dataset, two
+    passes (the second from the device cache): the CPU run's key set, every
+    value finite, losses and seg metrics within 1e-2 of the CPU run's."""
+    import dataclasses
+    import json
+
+    from multitask_bonetumor_yolo_tpu_torch.cli import evaluate
+    from multitask_bonetumor_yolo_tpu_torch.data import make_synthetic_btxrd
+    from multitask_bonetumor_yolo_tpu_torch.losses import LossConfig
+    from multitask_bonetumor_yolo_tpu_torch.models import ModelConfig
+    from multitask_bonetumor_yolo_tpu_torch.train import (CheckpointManager, TrainConfig,
+                                                          create_train_state)
+
+    cfg = ModelConfig(**EVAL_CFG)
+    root = make_synthetic_btxrd(str(tmp_path / "d"), n=4, seed=2, min_size=120, max_size=300,
+                                rich=True)
+    state = create_train_state(cfg, TrainConfig(), model=perturbed_model(cfg))
+    step_dir = CheckpointManager(str(tmp_path / "ckpt")).save(state, 1)
+    (tmp_path / "ckpt" / "config.json").write_text(json.dumps({
+        "model": dataclasses.asdict(cfg),
+        "loss": dataclasses.asdict(LossConfig(img_size=160, assigner="tal")),
+        "data": {"img_size": 160, "max_boxes": 8, "upload_streams": 4}}, default=list))
+    runs = {}
+    for where in ("cpu", "cuda"):
+        before = cnb.convnext_block.launches
+        runs[where] = evaluate.main([
+            "--checkpoint-path", str(step_dir), "--root", str(root), "--split", "all",
+            "--batch-size", "4", "--image-ext", ".png", "--dtype", "float32", "--epochs", "2",
+            "--device", where, "--run-dir", str(tmp_path / f"run_{where}"), "--log-examples"])
+        assert cnb.convnext_block.launches - before == (2 * 5 if where == "cuda" else 0)
+    got, want = runs["cuda"], runs["cpu"]
+    assert sorted(got) == sorted(want) and all(np.isfinite(v) for v in got.values())
+    for k in want:
+        if k.startswith(("loss_", "seg_dice", "seg_precision", "seg_recall")):
+            assert abs(got[k] - want[k]) <= 1e-2 * max(1.0, abs(want[k])), (k, got[k], want[k])
+    assert len(list((tmp_path / "run_cuda" / "media").glob("*.png"))) >= 2

@@ -174,7 +174,8 @@ def test_compose_masks_matches_jax(crop, img_size):
 
 def test_port_imports_no_jax():
     """Importing every module of the port leaves jax out of sys.modules (a
-    subprocess: this test process has jax loaded by conftest)."""
+    subprocess: this test process has jax loaded by conftest). The walk must
+    reach the evaluation path's modules."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         import multitask_bonetumor_yolo_tpu_torch as pkg
@@ -184,8 +185,13 @@ def test_port_imports_no_jax():
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax")
                      or m.startswith("multitask_bonetumor_yolo_tpu."))
-        print(len(names), bad)
-        sys.exit(1 if bad or len(names) < 15 else 0)
+        eval_path = ("metrics", "metrics.classification", "metrics.segmentation",
+                     "metrics.detection", "data.dataset", "data.synthetic",
+                     "train.checkpoint", "train.loop", "train.steps", "utils.logging",
+                     "cli.evaluate")
+        missing = sorted(m for m in eval_path if f"{pkg.__name__}.{m}" not in names)
+        print(len(names), bad, missing)
+        sys.exit(1 if bad or missing or len(names) < 30 else 0)
     """)
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=120)
