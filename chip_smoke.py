@@ -145,6 +145,23 @@ is printed):
      values, pass 2 (replayed from the device cache) equal to pass 1, the
      overlays read back; "[evaluate]" gives both passes' times, the host's
      work of pass 1 timed alone, and the peak device memory.
+ 15. "trainer" (after "eval"): a synthetic split of 48 PNGs (320-960 px,
+     ``rich``; 38 train, 4 steps of 8, and 10 val); ``cli.train.main`` in
+     process on the full-width v1 model made from its seed (640^2, bf16,
+     batch 8, ``pallas`` and ``block_bwd`` "auto", HSV 0.015 / 0.7 / 0.4 and
+     flip 0.5, ``--log-every 1``) for 2 epochs: every train step launches
+     K1's saving form and K2 15 times and K1 never, every validation forward
+     K1 15 times (the steps' launch counters read around each call); every
+     logged loss finite, no step skipped, ``config.json``, the index and the
+     last checkpoint written; then ``--resume auto --epochs 3`` continues
+     from step 8 with epoch 2 and ends at step 12; ``cli.evaluate.main`` on
+     that checkpoint over the val split gives the trainer's last validation
+     (mAP50, Dice, image accuracy, loss) within 1e-6; and ``augment_batch``
+     with mosaic, HSV and flip on the card against the CPU on fixed draws
+     (boxes, valid, masks, labels equal, images within 1e-5). "[trainer]"
+     gives each epoch's ``PhaseTimer`` split, "[trainer-time]" the train
+     img/s over epoch 1, the validation seconds of epoch 0 (primed) and 1
+     (replayed), the checkpoint seconds and the peak device memory.
 Each phase sets the launch counts to 0 right before the path it drives and
 reads them right after; the K3 and K4 launches of the kernels line are
 those of phase 12's pass over the trunk. Prints the kernels' JSON line, the card's line, and
@@ -893,6 +910,208 @@ def phase_eval(cnb, model, dev, card):
     log("[evaluate] metrics " + json.dumps({k: metrics[k] for k in sorted(metrics)}))
     if "[evaluate] pass 2" not in printed.getvalue():
         raise RuntimeError("[evaluate] main printed no second pass")
+    return launches
+
+
+TRAINER_IMAGES = 48  # the trainer phase's synthetic split: 38 train (4 steps of 8), 10 val
+TRAINER_EPOCHS = 2
+TRAINER_AUG = ("--hsv-h", "0.015", "--hsv-s", "0.7", "--hsv-v", "0.4", "--hflip", "0.5")
+# cli.evaluate against the trainer's last validation: the same weights (the
+# checkpoint's fp32 parameters and BN statistics, bit for bit), the same val
+# batches in the same order, the same eval step and metric code on the same
+# card; its eager convs and K1 are deterministic at fixed shapes, so the two
+# passes compute the same numbers and 1e-6 leaves room only for printing
+TRAINER_EVAL_TOL = 1e-6
+
+
+def phase_trainer(cnb, k2, dev, card):
+    """The training entry point on the card: ``cli.train.main`` in process
+    (the full-width v1 model from its seed, 640^2, bf16, batch 8,
+    ``pallas`` and ``block_bwd`` "auto", HSV and flip augmentation) for
+    two epochs over a synthetic PNG split, then ``--resume auto --epochs 3``,
+    then ``cli.evaluate.main`` on the last checkpoint against the trainer's
+    last validation, then the mosaic / HSV / flip stage on the card against
+    the CPU on fixed draws. Each train step must launch K1's saving form
+    and K2 15 times and no K1, each validation forward K1 15 times and
+    neither of the others. Returns the launches of the first run, (K1, K1
+    saving, K2)."""
+    import numpy as np
+
+    from multitask_bonetumor_yolo_tpu_torch.cli import evaluate
+    from multitask_bonetumor_yolo_tpu_torch.cli import train as cli_train
+    from multitask_bonetumor_yolo_tpu_torch.data import (
+        BTXRD, BTXRDLoader, DataConfig, make_synthetic_btxrd, to_device)
+    from multitask_bonetumor_yolo_tpu_torch.data import preprocess
+    from multitask_bonetumor_yolo_tpu_torch.train import loop
+
+    work = Path(__file__).resolve().parent / "build" / "trainer"
+    if work.exists():
+        import shutil
+
+        shutil.rmtree(work)
+    t0 = time.perf_counter()
+    root = make_synthetic_btxrd(str(work / "data"), n=TRAINER_IMAGES, seed=SEED, min_size=320,
+                                max_size=960, rich=True)
+    data_cfg = DataConfig(root=str(root), img_size=IMG, image_ext=".png", batch_size=TRAIN_BATCH)
+    n_train, n_val = len(BTXRD(data_cfg, "train")), len(BTXRD(data_cfg, "val"))
+    steps = n_train // TRAIN_BATCH
+    log(f"[trainer] synthetic split: {TRAINER_IMAGES} PNGs (320-960 px, rich), {n_train} train "
+        f"({steps} steps of {TRAIN_BATCH}) / {n_val} val, written in "
+        f"{time.perf_counter() - t0:.2f} s")
+    if steps < 3:
+        raise RuntimeError(f"[trainer] {steps} steps per epoch, want at least 3")
+
+    counts = (cnb.convnext_block, cnb.convnext_block_saving, k2.convnext_block_bwd)
+    run_dir = work / "run"
+    argv = ["--root", str(root), "--run-dir", str(run_dir), "--img-size", str(IMG),
+            "--batch-size", str(TRAIN_BATCH), "--image-ext", ".png", "--log-every", "1",
+            *TRAINER_AUG]
+
+    def run_main(extra):
+        """``cli.train.main(argv + extra)`` with the launches (K1, K1 saving,
+        K2) of each train step and each validation forward recorded around
+        the step's call; returns (trainer, stdout, per-call launches, all
+        launches, seconds)."""
+        per_call = {"train": [], "eval": []}
+
+        def counted(kind, make):
+            def wrapped(*a, **k):
+                step = make(*a, **k)
+
+                def run(*args):
+                    before = tuple(fn.launches for fn in counts)
+                    out = step(*args)
+                    per_call[kind].append(tuple(fn.launches - b for fn, b in zip(counts, before)))
+                    return out
+                return run
+            return wrapped
+
+        make_train, make_eval = loop.make_train_step, loop.make_eval_step
+        loop.make_train_step = counted("train", make_train)
+        loop.make_eval_step = counted("eval", make_eval)
+        try:
+            torch.cuda.synchronize()
+            reset_counts(*counts)
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()) as printed:
+                trainer = cli_train.main(argv + extra)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        finally:
+            loop.make_train_step, loop.make_eval_step = make_train, make_eval
+        return (trainer, printed.getvalue(), per_call, tuple(fn.launches for fn in counts),
+                secs)
+
+    torch.cuda.reset_peak_memory_stats()
+    trainer, printed, first_calls, launches, first_s = run_main(["--epochs", str(TRAINER_EPOCHS)])
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if "[train] finished" not in printed:
+        raise RuntimeError("[trainer] main did not finish")
+
+    n_val_batches = -(-n_val // TRAIN_BATCH)
+    want_train = [(0, 15, 15)] * (TRAINER_EPOCHS * steps)
+    want_eval = [(15, 0, 0)] * (TRAINER_EPOCHS * n_val_batches)
+    if first_calls["train"] != want_train or first_calls["eval"] != want_eval:
+        raise RuntimeError(f"[trainer] launches (K1, K1 saving, K2) per train step "
+                           f"{first_calls['train']}, per validation forward "
+                           f"{first_calls['eval']}; want {want_train[0]} x {len(want_train)} "
+                           f"and {want_eval[0]} x {len(want_eval)}")
+    if launches != (15 * len(want_eval), 15 * len(want_train), 15 * len(want_train)):
+        raise RuntimeError(f"[trainer] main launched (K1, K1 saving, K2) {launches} in all")
+    if trainer.state.step != TRAINER_EPOCHS * steps:
+        raise RuntimeError(f"[trainer] ended at step {trainer.state.step}")
+
+    recs = [json.loads(line) for line in (run_dir / "metrics.jsonl").open()]
+    losses = [(r["step"], k, v) for r in recs for k, v in r.items()
+              if "/loss_" in k or k.endswith("grad_norm")]
+    bad = [x for x in losses if not np.isfinite(x[2])]
+    if not losses or bad:
+        raise RuntimeError(f"[trainer] non-finite logged losses {bad[:5]}")
+    if any(r.get("train_step/step_skipped", 0.0) != 0.0 for r in recs):
+        raise RuntimeError("[trainer] a train step was skipped")
+    ckpt_dir = run_dir / "checkpoints"
+    index = json.loads((ckpt_dir / "index.json").read_text())
+    last = ckpt_dir / f"step_{TRAINER_EPOCHS * steps:08d}"
+    if not (ckpt_dir / "config.json").exists() or last.name not in index \
+            or not (last / "weights.npz").exists():
+        raise RuntimeError(f"[trainer] checkpoints: index {sorted(index)}, want {last.name} "
+                           "with config.json beside it")
+    epochs = [{k.split("/")[1]: v for k, v in r.items() if k.startswith("train_epoch/")}
+              for r in recs if "train_epoch/epoch" in r]
+    for e in epochs:
+        log(f"[trainer] epoch {int(e['epoch'])}: {e['epoch_time_s']:.3f} s, PhaseTimer split "
+            + ", ".join(f"{k[6:-2]} {v:.3f} s" for k, v in e.items() if k.startswith("phase_"))
+            + f"; {card}")
+    e1 = epochs[1]
+    # the epoch less its validation, checkpoint and overlays: the batches'
+    # wait, the steps and the per-step log (one host copy, which waits for
+    # the step's device work)
+    train_s = e1["epoch_time_s"] - sum(e1.get(f"phase_{k}_s", 0.0)
+                                       for k in ("validate", "checkpoint", "viz"))
+    log(f"[trainer-time] cli.train.main, {TRAINER_EPOCHS} epochs of {steps} steps "
+        f"(batch {TRAIN_BATCH}, {IMG}^2 bf16, HSV + flip, PNG input): {first_s:.3f} s in all; "
+        f"epoch 1 trains at {steps * TRAIN_BATCH / train_s:.2f} img/s (host clock, the epoch "
+        f"less validation and checkpoint: {train_s:.3f} s, of which waiting for batches "
+        f"{e1['phase_data_s']:.3f} s and issuing the steps {e1['phase_train_step_s']:.3f} s); "
+        f"validation {epochs[0]['phase_validate_s']:.3f} s (epoch 0, primed) / "
+        f"{e1['phase_validate_s']:.3f} s (epoch 1, replayed) for {n_val} images; checkpoint "
+        f"{epochs[0]['phase_checkpoint_s']:.3f} / {e1['phase_checkpoint_s']:.3f} s; launches "
+        f"(K1, K1 saving, K2) {launches}; peak device memory {peak:.2f} GiB; {card}")
+
+    # --resume auto: epoch 2 from the saved step
+    resumed, printed2, per_call, _, _ = run_main(["--epochs", str(TRAINER_EPOCHS + 1),
+                                                  "--resume", "auto"])
+    if f"resumed from step {TRAINER_EPOCHS * steps}" not in printed2:
+        raise RuntimeError("[trainer] the second run did not resume from the last checkpoint")
+    if resumed.state.step != (TRAINER_EPOCHS + 1) * steps:
+        raise RuntimeError(f"[trainer] the resumed run ended at step {resumed.state.step}")
+    recs = [json.loads(line) for line in (run_dir / "metrics.jsonl").open()]
+    run2 = [r["train_epoch/epoch"] for r in recs if "train_epoch/epoch" in r][len(epochs):]
+    if run2 != [TRAINER_EPOCHS] or per_call["train"] != [(0, 15, 15)] * steps:
+        raise RuntimeError(f"[trainer] the resumed run trained epochs {run2}, launches "
+                           f"{per_call['train']}")
+    val = [{k.split("/", 1)[1]: v for k, v in r.items() if k.startswith("val_epoch/")}
+           for r in recs if "val_epoch/map_iou50_map" in r][-1]
+
+    # cli.evaluate on the last checkpoint over the same val split
+    last = ckpt_dir / f"step_{(TRAINER_EPOCHS + 1) * steps:08d}"
+    with contextlib.redirect_stdout(io.StringIO()):
+        metrics = evaluate.main(["--checkpoint-path", str(last), "--root", str(root),
+                                 "--split", "val", "--batch-size", str(TRAIN_BATCH),
+                                 "--image-ext", ".png", "--run-dir", str(work / "eval")])
+    keys = ("map_iou50_map", "seg_dice", "img_accuracy", "loss_total")
+    apart = {k: abs(metrics[k] - val[k]) for k in keys}
+    if any(d > TRAINER_EVAL_TOL * max(1.0, abs(val[k])) for k, d in apart.items()):
+        raise RuntimeError(f"[trainer] cli.evaluate {({k: metrics[k] for k in keys})} against "
+                           f"the trainer's last validation {({k: val[k] for k in keys})}")
+    log(f"[trainer] resumed at step {TRAINER_EPOCHS * steps}, trained epoch {TRAINER_EPOCHS} "
+        f"to step {resumed.state.step}; cli.evaluate on {last.name}: "
+        + ", ".join(f"{k} {metrics[k]:.6g} (trainer {val[k]:.6g})" for k in keys)
+        + f", apart at most {max(apart.values()):.3g} (tolerance {TRAINER_EVAL_TOL})")
+    del trainer, resumed
+
+    # the mosaic, HSV and flip stage on the card against the CPU, fixed draws
+    host = next(iter(BTXRDLoader(BTXRD(data_cfg, "train"), TRAIN_BATCH)))
+    aug = preprocess.AugmentConfig(hsv_h=0.015, hsv_s=0.7, hsv_v=0.4, hflip_prob=0.5,
+                                   mosaic_prob=0.5)
+    gen = torch.Generator().manual_seed(SEED)
+    draws = next(d for d in (preprocess.augment_draws(gen, aug, TRAIN_BATCH) for _ in range(64))
+                 if d["gate"].tolist() == [True, False] and 0 < int(d["flip"].sum()) < 2)
+    want = preprocess.augment_apply(to_device(host, "cpu"), aug, draws)
+    got = preprocess.augment_apply(to_device(host, dev), aug,
+                                   {k: v.to(dev) for k, v in draws.items()})
+    for k in ("boxes", "box_valid", "mask", "img_cls", "id", "sample_valid"):
+        if not torch.equal(got[k].cpu(), want[k]):
+            raise RuntimeError(f"[trainer] augment_batch {k} on the card differs from the CPU")
+    err = (got["image"].cpu() - want["image"]).abs().max().item()
+    if not err <= 1e-5:
+        raise RuntimeError(f"[trainer] augmented images on the card {err:.3e} from the CPU's")
+    on_card = preprocess.augment_batch(to_device(host, dev),
+                                       torch.Generator(device=dev).manual_seed(SEED), aug)
+    log(f"[trainer] mosaic (one group of two used) + HSV + flip on the card against the CPU on "
+        f"fixed draws: boxes, valid, masks, img_cls, id equal; images max_abs_err {err:.3e} "
+        f"(limit 1e-5); with draws from a generator on the card: batch "
+        f"{tuple(on_card['image'].shape)}")
     return launches
 
 
@@ -1936,8 +2155,8 @@ def timed_build(name):
     return path, report, time.perf_counter() - t0
 
 
-PHASES = ("kernel", "model", "infer-cli", "eval", "k2", "k2-split", "train", "k3", "k4",
-          "k4-split", "fwdbwd", "lab")
+PHASES = ("kernel", "model", "infer-cli", "eval", "trainer", "k2", "k2-split", "train", "k3",
+          "k4", "k4-split", "fwdbwd", "lab")
 
 
 def main(argv=None) -> int:
@@ -2006,6 +2225,7 @@ def main(argv=None) -> int:
         ("model", lambda: phase_model(cnb, dev, gen)),
         ("infer-cli", infer_cli),
         ("eval", eval_phase),
+        ("trainer", lambda: phase_trainer(cnb, k2, dev, card)),
         ("k2", lambda: phase_training_kernels(cnb, k2, dev, gen)),
         ("k2-split", lambda: phase_k2_split(cnb, k2, dev, gen)),
         ("train", lambda: phase_train(cnb, k2, dev, gen)),
@@ -2029,6 +2249,7 @@ def main(argv=None) -> int:
     max_err, per_stage, k_ms, p_ms = r["kernel"]
     launches = r["model"][0]
     eval_launches = r["eval"]
+    trainer_launches = r["trainer"]
     err_sav, err_dx, err_scale, bwd_stages, tot = r["k2"]
     k2_split = r["k2-split"]
     _, n_saving, n_bwd = r["train"]
@@ -2045,6 +2266,7 @@ def main(argv=None) -> int:
          "source": "multitask_bonetumor_yolo_tpu_torch/csrc/convnext_block.cu",
          "replaces": "multitask_bonetumor_yolo_tpu/ops/pallas/convnext_block.py:165",
          "launches": launches, "eval_launches": eval_launches,
+         "trainer_launches": trainer_launches[0],
          "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms,
          "first_design_ms": sum(d * row["first_design_ms"]
                                 for (_, _, d), row in zip(STAGES, per_stage)),
@@ -2052,7 +2274,8 @@ def main(argv=None) -> int:
         {"name": "convnext_block_saving", **common,
          "source": "multitask_bonetumor_yolo_tpu_torch/csrc/convnext_block.cu",
          "replaces": "multitask_bonetumor_yolo_tpu/ops/pallas/convnext_block.py:563",
-         "launches": n_saving, "max_abs_err": err_sav, "ms": tot["sav"],
+         "launches": n_saving, "trainer_launches": trainer_launches[1],
+         "max_abs_err": err_sav, "ms": tot["sav"],
          "plain_ms": tot["sav_plain"], "first_design_ms": tot["sav_v0"],
          "bound_ms": tot["sav_bound"][0], "bound_by": tot["sav_bound"][1],
          "per_stage": [{"shape": row["shape"], "ms": row["saving_ms"],
@@ -2063,7 +2286,8 @@ def main(argv=None) -> int:
         {"name": "convnext_block_bwd", **common,
          "source": "multitask_bonetumor_yolo_tpu_torch/csrc/convnext_block_bwd.cu",
          "replaces": "multitask_bonetumor_yolo_tpu/ops/pallas/convnext_block_bwd.py:312",
-         "launches": n_bwd, "max_abs_err": err_dx, "grad_err_of_scale": err_scale,
+         "launches": n_bwd, "trainer_launches": trainer_launches[2],
+         "max_abs_err": err_dx, "grad_err_of_scale": err_scale,
          "ms": tot["k2"], "plain_ms": tot["plain"], "bound_ms": tot["bound"][0],
          "bound_by": tot["bound"][1], "eager_bwd_ms": tot["eager"],
          "launches_per_call": max(r["launches_per_call"] for r in k2_split

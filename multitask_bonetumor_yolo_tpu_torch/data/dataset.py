@@ -38,6 +38,7 @@ import csv
 import dataclasses
 import queue
 import threading
+import warnings
 from pathlib import Path
 from typing import Callable, Dict, Iterator, List, Optional
 
@@ -251,7 +252,11 @@ class DeviceEvalCache:
     batches would pass ``max_bytes``; every later pass replays them with no
     file reads and no copies, then streams the tail that did not fit
     (evaluation loaders do not shuffle, so the order is the same). Yields
-    ``(host_batch, device_batch)``."""
+    ``(host_batch, device_batch)``.
+
+    :meth:`prime` runs the first pass on a background thread, so that the
+    split's reads and copies overlap other work (the trainer primes it as
+    its first epoch starts); the next pass waits for it and replays."""
 
     HOST_KEYS = ("img_cls", "boxes", "box_valid", "sample_valid", "id")
 
@@ -261,8 +266,35 @@ class DeviceEvalCache:
         self.max_bytes = max_bytes
         self._cached: Optional[list] = None
         self._tail = False
+        self._primer: Optional[threading.Thread] = None
+        self._prime_error: Optional[Exception] = None
+
+    def prime(self) -> None:
+        """Start the first pass on a background thread. Idempotent. If it
+        fails, the error is kept, and the next :meth:`__iter__` warns with
+        it and streams the split itself (where the error, if it comes again,
+        is raised)."""
+        if self._cached is not None or self._primer is not None:
+            return
+
+        def run():
+            try:
+                for _ in self._populate():
+                    pass
+            except Exception as e:  # reported by __iter__, which retries inline
+                self._prime_error = e
+
+        self._primer = threading.Thread(target=run, daemon=True)
+        self._primer.start()
 
     def __iter__(self):
+        if self._primer is not None:
+            self._primer.join()
+            self._primer = None
+            if self._prime_error is not None:
+                warnings.warn(f"DeviceEvalCache: priming failed ({self._prime_error!r}); "
+                              "streaming the split inline", RuntimeWarning, stacklevel=2)
+                self._prime_error = None
         if self._cached is None:
             yield from self._populate()
             return

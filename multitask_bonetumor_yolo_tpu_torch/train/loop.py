@@ -1,29 +1,46 @@
-"""Validation metrics of the training loop (counterpart of the evaluation half
-of the JAX ``train/loop.py``): ``ExperimentConfig``, the mAP input builders
-and ``ValidationMetrics``. The ``Trainer`` is not ported yet.
+"""Training orchestration (counterpart of the JAX ``train/loop.py``):
+``ExperimentConfig``, the mAP input builders, ``ValidationMetrics`` and the
+``Trainer``: epochs, per-epoch validation, top-K and 'last' checkpoints,
+``--resume``, the emergency checkpoint, early stopping on val mAP50.
 
 ``ValidationMetrics`` keeps each batch's small aux (losses, NMS result,
 segmentation counts and scores, class logits, confusion-matrix counts) on
 the device as the eval step returns it, and moves it all to the host in one
 copy when :meth:`ValidationMetrics.compute` runs: one wait for the device per
 pass, where reading each batch would wait once per batch.
+
+The ``Trainer`` runs on one device (default the first card; without one it
+raises unless given ``device="cpu"``): the global batch is
+``cfg.data.batch_size``, batches go to the device through ``to_device`` on
+the loader's prefetch thread, and the train step's random draws come from
+one ``torch.Generator`` on the device seeded with ``train.seed`` (like the
+JAX trainer's key, it is not restored on resume). Data parallelism is not
+ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import time
+from pathlib import Path
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
-from ..data.dataset import DataConfig
+from ..data.dataset import (BTXRD, BTXRDLoader, DataConfig, DeviceEvalCache, Prefetcher,
+                            to_device)
 from ..data.preprocess import AugmentConfig
 from ..losses import LossConfig
 from ..metrics import BinarySegMetrics, ClassificationMetrics, MeanAveragePrecision
 from ..metrics.segmentation import mask_map_inputs_from_counts
 from ..models import ModelConfig
-from .state import TrainConfig
+from ..utils.logging import RunLogger
+from ..utils.profiling import PhaseTimer, annotate
+from .checkpoint import CheckpointManager
+from .state import TrainConfig, TrainState, create_train_state, lr_at
+from .steps import make_eval_step, make_train_step
 
 
 @dataclasses.dataclass(frozen=True)
@@ -178,3 +195,189 @@ class ValidationMetrics:
             out.update({f"map_iou50_95_{k}": v for k, v in m.items()
                         if isinstance(v, (int, float))})
         return out
+
+
+def _host(tensors: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """``tensors`` as numpy arrays, in one device-to-host copy."""
+    return _to_host([tensors])[0]
+
+
+class Trainer:
+    def __init__(self, cfg: ExperimentConfig, resume: Optional[str] = None,
+                 convnext_ckpt: Optional[str] = None, detect_ckpt: Optional[str] = None,
+                 segment_ckpt: Optional[str] = None, device: torch.device | str = "cuda"):
+        """``resume``: a checkpoint path, or "auto" for the run dir's last
+        checkpoint. ``convnext_ckpt`` / ``detect_ckpt`` / ``segment_ckpt``:
+        torch state dicts for the reference's pretrained warm start (timm
+        convnext_tiny, YOLOv8 heads; ``utils/import_torch_weights.py``).
+        ``device``: the card by default; without one this raises unless
+        given ``"cpu"``."""
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("Trainer: no CUDA device; pass device='cpu' to train on the CPU")
+        self.cfg = cfg
+        self.logger = RunLogger(cfg.run_dir, cfg.wandb_project)
+        self.global_batch = cfg.data.batch_size
+        self.train_ds = BTXRD(cfg.data, "train")
+        self.val_ds = BTXRD(cfg.data, "val")
+        if len(self.train_ds) == 0:
+            raise RuntimeError(f"No training data under {cfg.data.root}")
+        steps = max(1, len(self.train_ds) // self.global_batch)
+        self.train_cfg = dataclasses.replace(cfg.train, steps_per_epoch=steps)
+        self.state = create_train_state(cfg.model, self.train_cfg, device=self.device)
+        self.train_step = make_train_step(cfg.model, cfg.loss, cfg.augment)
+        self.eval_step = make_eval_step(cfg.model, cfg.loss, self.train_cfg)
+        self.ckpt = CheckpointManager(f"{cfg.run_dir}/{self.train_cfg.ckpt_dir}",
+                                      top_k=self.train_cfg.ckpt_top_k)
+        # the model / loss / data config beside the checkpoints, so that
+        # cli/evaluate.py defaults its flags from the trained config
+        cfg_path = Path(f"{cfg.run_dir}/{self.train_cfg.ckpt_dir}/config.json")
+        cfg_path.write_text(json.dumps({
+            "model": dataclasses.asdict(cfg.model),
+            "loss": dataclasses.asdict(cfg.loss),
+            "data": {"img_size": cfg.data.img_size,
+                     "max_boxes": cfg.data.max_boxes,
+                     "upload_streams": cfg.data.upload_streams},
+        }, indent=2, default=list))
+        self.generator = torch.Generator(device=self.device).manual_seed(self.train_cfg.seed)
+        self._val_cache: Optional[DeviceEvalCache] = None
+
+        if convnext_ckpt or detect_ckpt or segment_ckpt:
+            from ..utils.import_torch_weights import load_pretrained
+
+            load_pretrained(self.state.model, convnext_path=convnext_ckpt,
+                            detect_sd_path=detect_ckpt, segment_sd_path=segment_ckpt)
+        if resume:
+            path = None if resume == "auto" else resume
+            if resume == "auto" and self.ckpt.last_path() is None:
+                print("[trainer] --resume auto: no checkpoint yet, starting fresh")
+            else:
+                self.state = self.ckpt.restore(self.state, path)
+                print(f"[trainer] resumed from step {self.state.step}")
+
+    # ------------------------------------------------------------------
+    def fit(self, max_epochs: Optional[int] = None) -> TrainState:
+        """Run the training loop; on an exception (not a ``KeyboardInterrupt``)
+        checkpoint the live state, then re-raise."""
+        try:
+            return self._fit(max_epochs)
+        except KeyboardInterrupt:
+            raise
+        except Exception:
+            step = self.state.step
+            if step > 0:
+                self.ckpt.save(self.state, step, metric=None)
+                print(f"[trainer] crash — emergency checkpoint at step {step}")
+            raise
+
+    def _fit(self, max_epochs: Optional[int] = None) -> TrainState:
+        cfg = self.cfg
+        epochs = max_epochs or self.train_cfg.max_epochs
+        best_metric, best_epoch = -float("inf"), -1
+        global_step = self.state.step
+        start_epoch = global_step // self.train_cfg.steps_per_epoch
+
+        # the val split streams onto the device while the first epoch trains
+        self._ensure_val_cache().prime()
+
+        for epoch in range(start_epoch, epochs):
+            t0 = time.time()
+            timer = PhaseTimer()
+            loader = BTXRDLoader(self.train_ds, self.global_batch, shuffle=True,
+                                 drop_last=True, seed=self.train_cfg.seed + epoch)
+            it = iter(Prefetcher(loader, map_fn=lambda b: to_device(b, self.device)))
+            aux, last_batch = None, None
+            while True:
+                with timer.phase("data"):
+                    batch = next(it, None)
+                if batch is None:
+                    break
+                last_batch = batch
+                with timer.phase("train_step"), annotate("train_step"):
+                    self.state, metrics, aux = self.train_step(self.state, batch, self.generator)
+                global_step += 1
+                if global_step % cfg.log_every == 0:
+                    # one host copy; under mosaic the step's batch is the
+                    # first B // 4 images' labels (data/preprocess.py)
+                    n = aux["cls_logits"].shape[0]
+                    host = _host({**{f"m:{k}": v for k, v in metrics.items()},
+                                  "cls_logits": aux["cls_logits"],
+                                  "img_cls": batch["img_cls"][:n]})
+                    logged = {k[2:]: float(v) for k, v in host.items() if k.startswith("m:")}
+                    logged["lr"] = lr_at(self.train_cfg, global_step)
+                    tc = ClassificationMetrics(cfg.model.nc_img)
+                    tc.update(host["cls_logits"], host["img_cls"])
+                    logged.update({f"img_{k}": v for k, v in tc.compute().items()})
+                    self.logger.log(logged, global_step, prefix="train_step", to_console=True)
+
+            if aux is not None and epoch % cfg.viz_every_epochs == 0:
+                with timer.phase("viz"):  # the overlays draw the first 4 images
+                    host = _host({"image": aux["image"][:4], "seg_prob": aux["seg_prob"][:4],
+                                  "mask": last_batch["mask"][:4]})
+                    imgs = host["image"].astype(np.float32)
+                    if imgs.max() > 1.5:
+                        imgs = imgs / 255.0
+                    self.logger.log_seg_examples(imgs, host["seg_prob"], host["mask"],
+                                                 stage="train", step=global_step)
+            with timer.phase("validate"), annotate("validate"):
+                val = self.validate(epoch, global_step)
+            map50 = val.get("map_iou50_map", -1.0)
+            # save when the metric enters the top-K, on the 'last' cadence,
+            # and after the last epoch
+            want_save = (self.ckpt.qualifies(map50)
+                         or epoch % max(1, self.train_cfg.save_last_every) == 0
+                         or epoch == epochs - 1)
+            with timer.phase("checkpoint"):
+                if want_save:
+                    self.ckpt.save(self.state, global_step, metric=map50, epoch=epoch)
+            self.logger.log({"epoch": epoch, "epoch_time_s": time.time() - t0,
+                             **{f"phase_{k}_s": round(v, 4) for k, v in timer.totals.items()}},
+                            global_step, prefix="train_epoch")
+            if map50 > best_metric:
+                best_metric, best_epoch = map50, epoch
+            elif epoch - best_epoch >= self.train_cfg.early_stop_patience:
+                print(f"[early-stop] no val mAP50 improvement for "
+                      f"{self.train_cfg.early_stop_patience} epochs")
+                break
+        return self.state
+
+    # ------------------------------------------------------------------
+    def _ensure_val_cache(self) -> DeviceEvalCache:
+        # the val split on the device: read and copied once, replayed after
+        if self._val_cache is None:
+            self._val_cache = DeviceEvalCache(
+                lambda: BTXRDLoader(self.val_ds, self.global_batch, pad_last=True),
+                lambda b: to_device(b, self.device))
+        return self._val_cache
+
+    def validate(self, epoch: int, global_step: int) -> Dict[str, float]:
+        cfg = self.cfg
+        vm = ValidationMetrics(cfg)
+        first = True
+        for batch, dev_batch in self._ensure_val_cache():
+            metrics, aux = self.eval_step(self.state, dev_batch)
+            vm.update(metrics, aux, batch)
+            if first and epoch % cfg.viz_every_epochs == 0:
+                self._log_examples(batch, aux, epoch, global_step)
+            first = False
+        out = vm.compute(full_map=epoch % self.train_cfg.map_full_freq == 0)
+        self.logger.log(out, global_step, prefix="val_epoch", to_console=True)
+        self.logger.log_confusion_matrix(vm.cls.normalized_cm(),
+                                         {i: f"imgC{i}" for i in range(cfg.model.nc_img)},
+                                         "img_confusion_matrix", global_step)
+        if vm.det_cm.cm.sum() > 0:
+            self.logger.log_confusion_matrix(vm.det_cm.normalized_cm(),
+                                             {i: f"detC{i}" for i in range(cfg.model.nc_det)},
+                                             "det_confusion_matrix", global_step)
+        return out
+
+    def _log_examples(self, batch, aux, epoch, step) -> None:
+        host = _host({k: aux[k] for k in ("seg_prob", "nms_boxes", "nms_scores", "nms_labels",
+                                          "nms_valid")})
+        imgs = np.asarray(batch["image"]).astype(np.float32) / 255.0
+        self.logger.log_seg_examples(imgs, host["seg_prob"], np.asarray(batch["mask"]),
+                                     stage="val", step=step)
+        self.logger.log_det_examples(imgs, host["nms_boxes"], host["nms_scores"],
+                                     host["nms_labels"], host["nms_valid"].astype(bool),
+                                     np.asarray(batch["boxes"]), np.asarray(batch["box_valid"]),
+                                     stage="val", step=step)

@@ -660,3 +660,86 @@ def test_cli_evaluate_on_card(dev, tmp_path):
         if k.startswith(("loss_", "seg_dice", "seg_precision", "seg_recall")):
             assert abs(got[k] - want[k]) <= 1e-2 * max(1.0, abs(want[k])), (k, got[k], want[k])
     assert len(list((tmp_path / "run_cuda" / "media").glob("*.png"))) >= 2
+
+
+def test_augment_batch_on_card_matches_cpu(dev):
+    """The mosaic, HSV and flip stage on the card against the CPU on the same
+    fixed draws (one mosaic group used, one not; one image flipped, one
+    not): boxes, valid, masks, ``img_cls``, ``id`` and ``sample_valid``
+    equal, images within 1e-5; and with draws from a generator on the card."""
+    from multitask_bonetumor_yolo_tpu_torch.data import preprocess
+
+    rs = np.random.RandomState(3)
+    b, s = 8, 64
+    boxes = rs.uniform(0.1, 0.9, (b, 4, 5)).astype(np.float32)
+    mask = np.zeros((b, s, s, 1), np.uint8)
+    mask[:, 10:30, 20:50] = 1
+    batch = {"image": torch.from_numpy(rs.randint(0, 256, (b, s, s, 3)).astype(np.uint8)),
+             "boxes": torch.from_numpy(boxes),
+             "box_valid": torch.from_numpy(np.arange(4)[None] < (np.arange(b) % 4)[:, None]),
+             "mask": torch.from_numpy(mask), "img_cls": torch.arange(b, dtype=torch.int32),
+             "id": torch.arange(b, dtype=torch.int32),
+             "sample_valid": torch.ones(b, dtype=torch.bool)}
+    cfg = preprocess.AugmentConfig(hsv_h=0.015, hsv_s=0.7, hsv_v=0.4, hflip_prob=0.5,
+                                   mosaic_prob=0.5)
+    draws = {"gate": torch.tensor([True, False]), "hsv": torch.rand(2, 3) * 2 - 1,
+             "flip": torch.tensor([False, True])}
+    want = preprocess.augment_apply(batch, cfg, draws)
+    got = preprocess.augment_apply({k: v.to(dev) for k, v in batch.items()}, cfg,
+                                   {k: v.to(dev) for k, v in draws.items()})
+    assert sorted(got) == sorted(want)
+    for k in ("boxes", "box_valid", "mask", "img_cls", "id", "sample_valid"):
+        assert torch.equal(got[k].cpu(), want[k]), k
+    torch.testing.assert_close(got["image"].cpu(), want["image"], atol=1e-5, rtol=0)
+    out = preprocess.augment_batch({k: v.to(dev) for k, v in batch.items()},
+                                   torch.Generator(device=dev).manual_seed(0), cfg)
+    assert out["image"].shape == (2, s, s, 3) and out["image"].device.type == "cuda"
+
+
+def test_trainer_epoch_on_card(dev, tmp_path):
+    """One epoch of ``Trainer.fit`` on the card at a tiny config (128 px,
+    depths 1/1/1/1 at widths 48/96/192/384, BiFPN 64, bf16, 16 synthetic
+    PNGs: 1 step of 8, 1 val batch): the step launches K1's saving form and
+    K2 once per block (4) and K1 none, the validation forward K1 4 times;
+    finite losses; the last checkpoint written."""
+    import json
+
+    from multitask_bonetumor_yolo_tpu_torch.data import DataConfig, make_synthetic_btxrd
+    from multitask_bonetumor_yolo_tpu_torch.losses import LossConfig
+    from multitask_bonetumor_yolo_tpu_torch.models import ModelConfig
+    from multitask_bonetumor_yolo_tpu_torch.train import TrainConfig
+    from multitask_bonetumor_yolo_tpu_torch.train.loop import ExperimentConfig, Trainer
+
+    img = 128
+    root = make_synthetic_btxrd(str(tmp_path / "d"), n=16, seed=11, min_size=96, max_size=200)
+    cfg = ExperimentConfig(
+        model=ModelConfig(img_size=img, single_head=True, backbone_depths=(1, 1, 1, 1),
+                          backbone_dims=(48, 96, 192, 384), bifpn_num_layers=1,
+                          bifpn_feature_size=64, proto_ch=8, dtype="bfloat16"),
+        data=DataConfig(root=str(root), img_size=img, max_boxes=8, batch_size=8,
+                        image_ext=".png"),
+        loss=LossConfig(img_size=img, iou_match_thresh=0.15),
+        train=TrainConfig(lr=3e-4, max_epochs=1, seed=0, eval_top_k=10),
+        run_dir=str(tmp_path / "run"), log_every=1)
+    trainer = Trainer(cfg)
+    assert trainer.state.mu.device.type == "cuda" and trainer.train_cfg.steps_per_epoch == 1
+    counts = (cnb.convnext_block, cnb.convnext_block_saving, k2.convnext_block_bwd)
+    calls = []
+    step, evaluate = trainer.train_step, trainer.eval_step
+
+    def counted(fn):
+        def run(*args):
+            before = tuple(c.launches for c in counts)
+            out = fn(*args)
+            calls.append(tuple(c.launches - b for c, b in zip(counts, before)))
+            return out
+        return run
+
+    trainer.train_step, trainer.eval_step = counted(step), counted(evaluate)
+    trainer.fit()
+    torch.cuda.synchronize()
+    assert calls == [(0, 4, 4), (4, 0, 0)]
+    recs = [json.loads(line) for line in (tmp_path / "run" / "metrics.jsonl").open()]
+    losses = [v for r in recs for k, v in r.items() if "/loss_" in k]
+    assert losses and all(np.isfinite(v) for v in losses)
+    assert (trainer.ckpt.last_path() / "weights.npz").exists()

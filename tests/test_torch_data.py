@@ -143,3 +143,41 @@ def test_loader_and_device_cache(tmp_path):
 
     with pytest.raises(OSError, match="unreadable"):
         list(dataset.Prefetcher(broken()))
+
+
+def test_device_cache_prime(tmp_path):
+    """``DeviceEvalCache.prime`` runs the first pass on a thread: the next
+    pass joins it and replays the same batches without calling the loader
+    again; priming twice starts one pass. A primer that fails keeps its
+    error: the next pass warns with it and streams the split inline (the
+    JAX primer swallowed every ``BaseException`` silently)."""
+    items = Items(10)
+    calls = []
+
+    def make_loader():
+        calls.append(1)
+        return dataset.BTXRDLoader(items, pad_last=True)
+
+    want = list(dataset.DeviceEvalCache(make_loader, lambda b: dataset.to_device(b, "cpu")))
+    calls.clear()
+    cache = dataset.DeviceEvalCache(make_loader, lambda b: dataset.to_device(b, "cpu"))
+    cache.prime()
+    cache.prime()
+    got = list(cache)
+    assert len(calls) == 1 and cache._primer is None and len(got) == len(want) == 3
+    for (_, d1), (_, d2) in zip(got, want):
+        assert all(torch.equal(d1[k], d2[k]) for k in d2)
+
+    failures = iter([OSError("disk gone")])
+
+    def flaky():
+        err = next(failures, None)
+        if err is not None:
+            raise err
+        return dataset.BTXRDLoader(items, pad_last=True)
+
+    cache = dataset.DeviceEvalCache(flaky, lambda b: dataset.to_device(b, "cpu"))
+    cache.prime()
+    with pytest.warns(RuntimeWarning, match=r"priming failed \(OSError\('disk gone'\)\)"):
+        got = list(cache)
+    assert len(got) == 3 and len(cache._cached) == 3

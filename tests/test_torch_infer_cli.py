@@ -29,11 +29,18 @@ def random_model(seed=0):
     return model
 
 
-def test_torch_to_flax_inverts_flax_to_torch():
+@pytest.fixture(scope="module")
+def served():
+    """The v1 model with perturbed weights, shared by the two tests below
+    (neither changes it; a full-width build takes ~1 s)."""
+    return random_model(1).eval()
+
+
+def test_torch_to_flax_inverts_flax_to_torch(served):
     """``flax_to_torch(*torch_to_flax(sd))`` equals the v1 model's
     ``state_dict`` key for key and bit for bit, and the trees hold no
     torch-only leaf name."""
-    sd = random_model().state_dict()
+    sd = served.state_dict()
     params, stats = torch_to_flax(sd)
     back = flax_to_torch(params, stats)
     assert set(back) == set(sd)
@@ -43,12 +50,12 @@ def test_torch_to_flax_inverts_flax_to_torch():
     assert "running_mean" not in repr(stats) and "num_batches_tracked" not in repr(stats)
 
 
-def test_main_on_png_matches_infer_batch(tmp_path, capsys):
+def test_main_on_png_matches_infer_batch(served, tmp_path, capsys):
     """``main`` with ``--device cpu`` on two PNGs (one not square), with a
     checkpoint written by ``save_npz`` from ``torch_to_flax``: each record's
     boxes, scores, labels and class probabilities equal those of
     ``infer_batch`` on the same letterboxed canvas."""
-    model = random_model(1).eval()
+    model = served
     ckpt = tmp_path / "w.npz"
     save_npz(str(ckpt), *torch_to_flax(model.state_dict()))
     rng = np.random.RandomState(5)
@@ -63,9 +70,9 @@ def test_main_on_png_matches_infer_batch(tmp_path, capsys):
     capsys.readouterr()
     records = json.loads((out / "predictions.json").read_text())
     assert [r["image"] for r in records] == paths
-    loaded = infer.load_model(model.cfg, str(ckpt), torch.device("cpu"))
+    # the checkpoint holds these weights bit for bit (the inverse test above)
     for rec, path in zip(records, paths):
-        res = infer.infer_batch(loaded, infer.load_and_letterbox(path, SIZE)[None],
+        res = infer.infer_batch(model, infer.load_and_letterbox(path, SIZE)[None],
                                 conf_thresh=0.05)
         n = int(res.detections.valid[0].sum())
         assert n > 0 and rec["num_detections"] == n

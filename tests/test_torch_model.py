@@ -53,8 +53,14 @@ def one_torch_thread():
     torch.set_num_threads(threads)
 
 
+_VARIABLES = {}
+
+
 def jax_variables(cfg, seed=0):
-    """Flax ``{params, batch_stats}`` for ``JaxModelConfig(**cfg)``: the
+    """Flax ``{params, batch_stats}`` for ``JaxModelConfig(**cfg)``, made once
+    per process for each (config, seed) and shared by the test modules that
+    import this function (tracing the JAX model's init for its shapes takes
+    ~4 s per call); callers get their own copy of the numpy leaves. The
     port's weights from ``build_model(seed)`` with every parameter and BN
     statistic perturbed as tests/test_reference_oracle.py does (running
     variances x U(0.7, 1.4), everything else + 0.05 N(0, 1)), so BN stats,
@@ -63,6 +69,13 @@ def jax_variables(cfg, seed=0):
     The bridge's per-leaf rules are transposes and flips, so its inverse is
     read off the bridge applied to Flax trees holding each element's own
     index (exact in fp32 below 2^24 elements)."""
+    key = (tuple(sorted(cfg.items())), seed)
+    if key not in _VARIABLES:
+        _VARIABLES[key] = _make_jax_variables(cfg, seed)
+    return jax.tree.map(np.copy, _VARIABLES[key])
+
+
+def _make_jax_variables(cfg, seed):
     shapes = jax.eval_shape(
         lambda x: JaxMultitaskModel(JaxModelConfig(**cfg)).init(
             jax.random.PRNGKey(0), x, train=False, mode="train"),

@@ -175,7 +175,7 @@ def test_compose_masks_matches_jax(crop, img_size):
 def test_port_imports_no_jax():
     """Importing every module of the port leaves jax out of sys.modules (a
     subprocess: this test process has jax loaded by conftest). The walk must
-    reach the evaluation path's modules."""
+    reach the evaluation and training paths' modules."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         import multitask_bonetumor_yolo_tpu_torch as pkg
@@ -188,7 +188,8 @@ def test_port_imports_no_jax():
         eval_path = ("metrics", "metrics.classification", "metrics.segmentation",
                      "metrics.detection", "data.dataset", "data.synthetic",
                      "train.checkpoint", "train.loop", "train.steps", "utils.logging",
-                     "cli.evaluate")
+                     "cli.evaluate", "cli.train", "data.preprocess", "ops.resize",
+                     "utils.profiling", "utils.import_torch_weights")
         missing = sorted(m for m in eval_path if f"{pkg.__name__}.{m}" not in names)
         print(len(names), bad, missing)
         sys.exit(1 if bad or missing or len(names) < 30 else 0)

@@ -123,11 +123,21 @@ def test_lr_schedule_matches_optax():
 
 
 def test_augmentation_is_not_ported_yet():
+    """The augmentations are ported (held against JAX in
+    tests/test_torch_augment.py): an enabled ``AugmentConfig`` no longer
+    raises but flips the images and boxes its draws pick; the default config
+    only normalises; the defaults are all off."""
     from multitask_bonetumor_yolo_tpu_torch.data import AugmentConfig, augment_batch
+    from multitask_bonetumor_yolo_tpu_torch.data.preprocess import augment_apply
 
     batch = to_torch(make_batch())
-    with pytest.raises(NotImplementedError):
-        augment_batch(batch, torch.Generator(), AugmentConfig(hflip_prob=0.5))
+    flip = torch.tensor([True, False])
+    out = augment_apply(batch, AugmentConfig(hflip_prob=0.5), {"flip": flip})
+    assert torch.equal(out["image"][0], torch.flip(batch["image"][0].float() / 255.0, dims=(1,)))
+    assert torch.equal(out["image"][1], batch["image"][1].float() / 255.0)
+    assert torch.equal(out["boxes"][0, :, 1], 1.0 - batch["boxes"][0, :, 1])
+    assert augment_batch(batch, torch.Generator(), AugmentConfig(hflip_prob=0.5))[
+        "image"].shape == out["image"].shape
     out = augment_batch(batch, torch.Generator(), AugmentConfig())
     assert out["image"].dtype == torch.float32 and float(out["image"].max()) <= 1.0
     assert dataclasses.asdict(AugmentConfig()) == {
