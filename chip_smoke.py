@@ -9,8 +9,9 @@ is printed):
   1. record the card (``nvidia-smi`` name and power limit);
   2. build the kernels from ``csrc/``, one nvcc per source, all at once: the
      ConvNeXt-block forward (K1), the block backwards (K2 and K4, one
-     source), the standalone depthwise 7x7 (K3) and the kernel lab (K5, and
-     its first design's lab, the "before");
+     source), the standalone depthwise 7x7 (K3), the JPEG decode (K6: its
+     host entropy decoder, K6a and K6b) and the kernel lab (K5, and its
+     first design's lab, the "before");
      time the builds, print registers and spills, and the shared memory and
      CTAs per SM of K1's Hopper design and K2's Hopper row pass at each of
      their widths;
@@ -162,9 +163,29 @@ is printed):
      gives each epoch's ``PhaseTimer`` split, "[trainer-time]" the train
      img/s over epoch 1, the validation seconds of epoch 0 (primed) and 1
      (replayed), the checkpoint seconds and the peak device memory.
+ 16. "raw" (after "trainer"): the first day from raw BTXRD. 24 labelme
+     JSONs + JPEGs of 300-600 px (``make_synthetic_raw``, the port's JPEG
+     writer) and two 2560x2048 JPEGs (colour 4:2:0, grey); ``cli.prepare_data``
+     (``--emit-seg-polygons``), ``cli.wrangle``, ``cli.show_sample`` ("[prepare]");
+     K6 against its plain version (``jpeg_idct_plain``, ``jpeg_color_plain``,
+     on the card) on the same coefficients and through the whole card route,
+     on every image in colour and grey reads: 0 differing bytes; the C
+     entropy decoder against the Python one on two images; an Exif
+     orientation ("[jpeg-check]"); "[jpeg]": a read by parts (parse,
+     entropy, upload, kernels, download; median of 5) at both sizes, K6a and
+     K6b by events and device time beside their bounds and plain versions;
+     "[raw-loader]": ``BTXRD.__getitem__`` img/s over the converted JPEGs
+     against the same pixels as PNG, in turns; then the full-width v1 model
+     (seeded random weights, conditioned as phase 14 does) through
+     ``cli.infer.main`` with overlays over the 24 converted JPEGs at the
+     confidence that passes ~250 anchors per image (as phase 4; 15 K1
+     launches and one of each of K6a and K6b per image, 48 overlays read
+     back; "[raw-infer]") and ``cli.evaluate.main --image-ext .jpeg`` over
+     the split ("[raw-evaluate]"; the JAX CLI's keys, finite).
 Each phase sets the launch counts to 0 right before the path it drives and
 reads them right after; the K3 and K4 launches of the kernels line are
-those of phase 12's pass over the trunk. Prints the kernels' JSON line, the card's line, and
+those of phase 12's pass over the trunk, K6a's and K6b's those of phase 16's
+``cli.infer`` and ``cli.evaluate``. Prints the kernels' JSON line, the card's line, and
 last ``{"ok": true, "device": {...}}``.
 """
 
@@ -693,7 +714,7 @@ def device_total_ms(fn, iters=5) -> float:
     events)."""
     fn()
     torch.cuda.synchronize()
-    events, _ = device_events(lambda: [fn() for _ in range(iters)])
+    events, _ = device_events(lambda: [fn() for _ in range(iters)], pad=fn)
     return sum(e.device_time for e in events) / 1e3 / iters
 
 
@@ -721,6 +742,28 @@ def condition_for_eval(state, images_u8):
     return shift
 
 
+def save_for_eval(model, images_u8, ckpt_dir, data_cfg):
+    """``model``'s train state, conditioned for evaluation
+    (:func:`condition_for_eval` on ``images_u8``), saved as step 1 with
+    ``CheckpointManager`` under ``ckpt_dir`` with the trainer's
+    ``config.json`` (model, TAL loss, data) beside it, as ``cli.evaluate``
+    reads it. Returns ``(state, shift, loss_cfg, step_dir)``."""
+    from multitask_bonetumor_yolo_tpu_torch.losses import LossConfig
+    from multitask_bonetumor_yolo_tpu_torch.train import (
+        CheckpointManager, TrainConfig, create_train_state)
+
+    cfg = model.cfg
+    state = create_train_state(cfg, TrainConfig(), model=model)
+    shift = condition_for_eval(state, images_u8)
+    loss_cfg = LossConfig(img_size=IMG, assigner="tal")
+    step_dir = CheckpointManager(str(ckpt_dir)).save(state, 1)
+    (Path(ckpt_dir) / "config.json").write_text(json.dumps({
+        "model": dataclasses.asdict(cfg), "loss": dataclasses.asdict(loss_cfg),
+        "data": {"img_size": IMG, "max_boxes": data_cfg.max_boxes,
+                 "upload_streams": data_cfg.upload_streams}}, indent=2, default=list))
+    return state, shift, loss_cfg, step_dir
+
+
 def phase_eval(cnb, model, dev, card):
     """The evaluation path on the card: a synthetic BTXRD dataset (40 PNGs,
     320-960 px, ``rich``), phase 4's randomized weights conditioned so that
@@ -739,10 +782,8 @@ def phase_eval(cnb, model, dev, card):
     from multitask_bonetumor_yolo_tpu_torch.data import (
         BTXRD, BTXRDLoader, DataConfig, make_synthetic_btxrd, to_device)
     from multitask_bonetumor_yolo_tpu_torch.data.imageio import read_png
-    from multitask_bonetumor_yolo_tpu_torch.losses import LossConfig
     from multitask_bonetumor_yolo_tpu_torch.models.heads import decode_detections
-    from multitask_bonetumor_yolo_tpu_torch.train import (
-        CheckpointManager, TrainConfig, create_train_state, make_eval_step)
+    from multitask_bonetumor_yolo_tpu_torch.train import TrainConfig, make_eval_step
 
     work = Path(__file__).resolve().parent / "build" / "eval"
     if work.exists():
@@ -761,15 +802,8 @@ def phase_eval(cnb, model, dev, card):
 
     set_pallas(model, "auto")
     cfg = model.cfg = dataclasses.replace(model.cfg, pallas="auto")
-    state = create_train_state(cfg, TrainConfig(), model=model)
-    shift = condition_for_eval(state, batch["image"])
-    loss_cfg = LossConfig(img_size=IMG, assigner="tal")
-    ckpt_dir = work / "checkpoints"
-    step_dir = CheckpointManager(str(ckpt_dir)).save(state, 1)
-    (ckpt_dir / "config.json").write_text(json.dumps({
-        "model": dataclasses.asdict(cfg), "loss": dataclasses.asdict(loss_cfg),
-        "data": {"img_size": IMG, "max_boxes": data_cfg.max_boxes,
-                 "upload_streams": data_cfg.upload_streams}}, indent=2, default=list))
+    state, shift, loss_cfg, step_dir = save_for_eval(model, batch["image"], work / "checkpoints",
+                                                     data_cfg)
 
     step = make_eval_step(cfg, loss_cfg, TrainConfig())
     out, bn_before = {}, [t.clone() for t in state.bn_stats()]
@@ -1115,6 +1149,336 @@ def phase_trainer(cnb, k2, dev, card):
     return launches
 
 
+RAW_IMAGES = 24  # make_synthetic_raw's split: the JAX function's 300-600 px JPEGs
+RAW_BIG = (2560, 2048)  # H, W of the two radiograph-sized JPEGs (colour 4:2:0 and grey)
+RAW_LOADER_TURNS = ("jpeg", "png", "png", "jpeg")
+
+
+def radiograph(h, w, seed):
+    """A seeded radiograph-like uint8 RGB image: a bright band on a smooth
+    background with noise (libjpeg's encoder keeps most AC of it at 95)."""
+    import numpy as np
+
+    rs = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    base = (90 + 60 * np.exp(-((xx - w / 2) / (0.18 * w)) ** 2) + 30 * np.sin(yy / 97.0)
+            + rs.randn(h, w).astype(np.float32) * 6)
+    return np.clip(np.stack([base, base * 0.97 + 4, base * 0.94 + 8], -1), 0, 255).astype(np.uint8)
+
+
+def with_exif(data: bytes, orientation: int) -> bytes:
+    """``data`` with an APP1 Exif segment holding the orientation tag."""
+    import struct
+
+    tiff = (b"II*\x00" + struct.pack("<IH", 8, 1)
+            + struct.pack("<HHIHH", 0x0112, 3, 1, orientation, 0) + struct.pack("<I", 0))
+    app1 = b"Exif\x00\x00" + tiff
+    return data[:2] + b"\xff\xe1" + struct.pack(">H", len(app1) + 2) + app1 + data[2:]
+
+
+def k6_bounds(lay):
+    """(bound_ms, bound_by) of K6a and K6b for one read of layout ``lay``:
+    K6a reads the needed components' coefficients (2 bytes each) and writes
+    their planes, ~1,400 32-bit integer operations per block (two passes of
+    eight 1-D IDCTs, the dequantisation and the range limit); K6b reads the
+    planes once and writes the pixels, ~30 operations per output value. The
+    integer operations are held to the fp32 rate outside the tensor cores."""
+    pixels = lay.height * lay.width * lay.channels
+    a = bound(lay.blocks * 128 + lay.plane_bytes, 0, 1400 * lay.blocks)
+    b = bound(lay.plane_bytes + pixels, 0, 30 * pixels)
+    return a, b
+
+
+def phase_raw(cnb, dev, gen, card):
+    """What a user does on the first day, from raw BTXRD on the card's
+    machine: ``make_synthetic_raw`` (24 JPEGs, 300-600 px, by the port's
+    writer) and two 2560x2048 JPEGs (colour 4:2:0 and grey); the CLIs
+    ``prepare_data``, ``wrangle`` and ``show_sample``; K6 (the C entropy
+    decoder, K6a and K6b) against its plain version on every image in
+    colour and grey reads (0 differing bytes), the C entropy decoder
+    against the Python one on two small images, an Exif orientation; "[jpeg]"
+    ms per image by part at both sizes; "[raw-loader]" ``BTXRD.__getitem__``
+    on the JPEG split against the same pixels as PNG; then the full-width v1
+    model (seeded random weights, conditioned as the eval phase does) through
+    ``cli.infer.main`` with overlays and ``cli.evaluate.main --image-ext
+    .jpeg`` over the converted split, K1's and K6's launches counted.
+    Returns the kernels line's K6 entries."""
+    import shutil
+    import statistics
+
+    import numpy as np
+
+    from multitask_bonetumor_yolo_tpu_torch.bridge import save_npz, torch_to_flax
+    from multitask_bonetumor_yolo_tpu_torch.cli import (
+        evaluate, infer, prepare_data, show_sample, wrangle)
+    from multitask_bonetumor_yolo_tpu_torch.data import (
+        BTXRD, BTXRDLoader, DataConfig, jpeg, make_synthetic_raw, to_device)
+    from multitask_bonetumor_yolo_tpu_torch.data.imageio import read_png, write_png
+    from multitask_bonetumor_yolo_tpu_torch.models import ModelConfig, build_model
+    from multitask_bonetumor_yolo_tpu_torch.ops.kernels import jpeg as k6
+
+    work = Path(__file__).resolve().parent / "build" / "raw"
+    if work.exists():
+        shutil.rmtree(work)
+    t0 = time.perf_counter()
+    raw = make_synthetic_raw(str(work / "raw"), n=RAW_IMAGES, seed=SEED)
+    raw_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    big = {}
+    for name, gray in (("big_colour", False), ("big_grey", True)):
+        img = radiograph(*RAW_BIG, seed=SEED)
+        big[name] = work / f"{name}.jpeg"
+        jpeg.write_jpeg(big[name], img[..., 0] if gray else img)
+    big_s = time.perf_counter() - t0
+    small = sorted((raw / "images").glob("*.jpeg"))
+    log(f"[prepare] raw split: {RAW_IMAGES} labelme JSONs + JPEGs (300-600 px, quality 95, "
+        f"4:2:0; {sum(p.stat().st_size for p in small) / 2**20:.2f} MiB) written in {raw_s:.2f} s; "
+        f"two {RAW_BIG[0]}x{RAW_BIG[1]} JPEGs (colour 4:2:0, grey; "
+        f"{', '.join(f'{p.stat().st_size / 2**20:.2f}' for p in big.values())} MiB) in "
+        f"{big_s:.2f} s (the port's writer, host)")
+
+    # the data-preparation CLIs
+    ready = work / "ready"
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as said:
+        prepare_data.main(["--src", str(raw), "--meta", str(raw / "dataset.csv"), "--dst",
+                           str(ready), "--emit-seg-polygons"])
+    prep_s = time.perf_counter() - t0
+    converted = sorted((ready / "images").glob("*.jpeg"))
+    counts = {d: len(list((ready / d).iterdir())) for d in ("images", "labels_det", "masks",
+                                                              "labels_seg")}
+    if len(converted) != RAW_IMAGES or set(counts.values()) != {RAW_IMAGES} or \
+            f"Converted {RAW_IMAGES}/{RAW_IMAGES}" not in said.getvalue():
+        raise RuntimeError(f"[prepare] convert gave {counts}: {said.getvalue()!r}")
+    masks = [read_png(p)[..., 0] for p in sorted((ready / "masks").glob("*.png"))]
+    if not all(m.max() == 255 and set(np.unique(m)) <= {0, 255} for m in masks):
+        raise RuntimeError("[prepare] a mask is empty or not binary 0/255")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as said:
+        rows = wrangle.main(["--src", str(raw), "--meta", str(raw / "dataset.csv"), "--out",
+                             str(work / "merged_annotations.csv")])
+    wrangle_s = time.perf_counter() - t0
+    if rows != 2 * RAW_IMAGES:
+        raise RuntimeError(f"[prepare] wrangle wrote {rows} rows, want {2 * RAW_IMAGES}")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as said:
+        show_sample.main(["--root", str(ready), "--split", "all", "--index", "0",
+                          "--img-size", str(IMG), "--out", str(work / "sample.png")])
+    show_s = time.perf_counter() - t0
+    if read_png(work / "sample.png").shape != (IMG, IMG, 3) or "box(es)" not in said.getvalue():
+        raise RuntimeError(f"[prepare] show_sample: {said.getvalue()!r}")
+    log(f"[prepare] cli.prepare_data (--emit-seg-polygons) in {prep_s:.3f} s: "
+        f"{counts} (masks binary, 255 inside); cli.wrangle {rows} rows in {wrangle_s:.3f} s; "
+        f"cli.show_sample (JPEG decoded on the card) in {show_s:.3f} s: "
+        f"{said.getvalue().strip()}")
+
+    # K6 against its plain version on every image, colour and grey reads
+    files = small + list(big.values())
+    diff_bytes, max_err, reads = 0, 0, 0
+    for path in files:
+        data = path.read_bytes()
+        frame = jpeg.parse(data)
+        coefs = k6.entropy_decode(data, frame).to(dev)
+        qt = jpeg.quant_tables(frame)
+        for gray in (False, True):
+            lay = jpeg.layout(frame, gray)
+            got = k6.jpeg_color(k6.jpeg_idct(coefs, qt, lay), lay)
+            want = k6.jpeg_color_plain(k6.jpeg_idct_plain(coefs, qt, lay), lay)
+            route = torch.from_numpy(k6.decode_jpeg(data, gray=gray, device=dev)).to(dev)
+            torch.cuda.synchronize()
+            if got.shape != want.shape or route.shape != want.shape:
+                raise RuntimeError(f"[jpeg-check] {path.name}: shapes {tuple(got.shape)}, "
+                                   f"{tuple(route.shape)}, plain {tuple(want.shape)}")
+            diff_bytes += int((got != want).sum()) + int((route != want).sum())
+            max_err = max(max_err, int((got.int() - want.int()).abs().max()))
+            reads += 1
+    if diff_bytes:
+        raise RuntimeError(f"[jpeg-check] K6 differs from its plain version in {diff_bytes} bytes")
+    for path in small[:2]:
+        data = path.read_bytes()
+        frame = jpeg.parse(data)
+        if not np.array_equal(k6.entropy_decode(data, frame).numpy(),
+                              jpeg.entropy_decode_py(data, frame)):
+            raise RuntimeError(f"[jpeg-check] {path.name}: the C entropy decoder differs "
+                               "from the Python one")
+    data = small[0].read_bytes()
+    upright = k6.decode_jpeg(data, device=dev)
+    turned = k6.decode_jpeg(with_exif(data, 6), device=dev)
+    if not np.array_equal(turned, np.swapaxes(upright, 0, 1)[:, ::-1]):
+        raise RuntimeError("[jpeg-check] Exif orientation 6 was not applied")
+    log(f"[jpeg-check] K6 (C entropy decoder, K6a, K6b) against its plain version on the "
+        f"card over {len(files)} images x colour/grey ({reads} reads): 0 differing bytes "
+        f"(max |diff| {max_err}); the C entropy decoder equal to the Python one on "
+        f"{small[0].name} and {small[1].name}; Exif orientation 6 turns "
+        f"{upright.shape[:2]} into {turned.shape[:2]}")
+
+    # "[jpeg]": one read by parts, at both sizes
+    def read_parts(data, gray, n=5):
+        parts = []
+        for _ in range(n + 1):
+            times = {}
+            t0 = time.perf_counter()
+            frame = jpeg.parse(data)
+            lay = jpeg.layout(frame, gray)
+            parse_ms = (time.perf_counter() - t0) * 1e3
+            k6.decode_on_card(data, frame, lay, jpeg.quant_tables(frame), dev, times)
+            times["parse"] = parse_ms
+            times["total"] = (time.perf_counter() - t0) * 1e3
+            parts.append(times)
+        return {k: statistics.median(p[k] for p in parts[1:]) for k in parts[0]}
+
+    jpeg_rows, k6_entry = [], {}
+    for label, path, gray in (("small", small[0], False), ("big colour", big["big_colour"], False),
+                              ("big grey", big["big_grey"], True)):
+        data = path.read_bytes()
+        frame = jpeg.parse(data)
+        lay = jpeg.layout(frame, gray)
+        qt = jpeg.quant_tables(frame)
+        coefs = k6.entropy_decode(data, frame).to(dev)
+        planes = k6.jpeg_idct(coefs, qt, lay)
+        parts = read_parts(data, gray)
+        ms_a = cuda_ms(lambda: k6.jpeg_idct(coefs, qt, lay))
+        ms_b = cuda_ms(lambda: k6.jpeg_color(planes, lay))
+        dev_a = device_ms(lambda: k6.jpeg_idct(coefs, qt, lay), "jpeg_idct_kernel", launches=1)
+        dev_b = device_ms(lambda: k6.jpeg_color(planes, lay), "jpeg_color_kernel", launches=1)
+        plain_a = cuda_ms(lambda: k6.jpeg_idct_plain(coefs, qt, lay), iters=5)
+        plain_b = cuda_ms(lambda: k6.jpeg_color_plain(planes, lay), iters=5)
+        (b_a, by_a), (b_b, by_b) = k6_bounds(lay)
+        row = {"image": label, "shape": [lay.height, lay.width], "gray": gray,
+               "bytes": len(data), "blocks": lay.blocks, "ms_by_part": parts,
+               "jpeg_idct": {"ms": ms_a, "device_ms": dev_a, "plain_ms": plain_a,
+                             "bound_ms": b_a, "bound_by": by_a},
+               "jpeg_color": {"ms": ms_b, "device_ms": dev_b, "plain_ms": plain_b,
+                              "bound_ms": b_b, "bound_by": by_b}}
+        jpeg_rows.append(row)
+        log(f"[jpeg] {label} {lay.height}x{lay.width}{' grey' if gray else ''} "
+            f"({len(data) / 2**20:.2f} MiB, {lay.blocks} blocks): per read (median of 5, ms) "
+            + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
+            + f"; K6a {ms_a:.4f} (events) / {dev_a:.4f} (device) beside its bound {b_a:.4f} "
+            f"({by_a}) and its plain version {plain_a:.3f}; K6b {ms_b:.4f} / {dev_b:.4f} beside "
+            f"{b_b:.4f} ({by_b}) and {plain_b:.3f}; {card}")
+        if label == "big colour":
+            k6_entry = row
+    t0 = time.perf_counter()
+    frame = jpeg.parse(small[0].read_bytes())
+    jpeg.entropy_decode_py(small[0].read_bytes(), frame)
+    py_ms = (time.perf_counter() - t0) * 1e3
+    log(f"[jpeg] the plain version's Python entropy decoder on {small[0].name}: {py_ms:.1f} ms "
+        f"(host), against the C decoder's {jpeg_rows[0]['ms_by_part']['entropy']:.3f} ms")
+
+    # "[raw-loader]": BTXRD.__getitem__ on the JPEG split against the same pixels as PNG
+    png_root = work / "ready_png"
+    for d in ("labels_det", "masks"):
+        shutil.copytree(ready / d, png_root / d)
+    (png_root / "images").mkdir()
+    for p in converted:
+        write_png(png_root / "images" / f"{p.stem}.png", k6.read_jpeg(p, device=dev), level=1)
+    (png_root / "img_cls.csv").write_text((ready / "img_cls.csv").read_text()
+                                          .replace(".jpeg,", ".png,"))
+    sets = {ext: BTXRD(DataConfig(root=str(root), img_size=IMG, image_ext=f".{ext}"), "all",
+                       device=dev)
+            for ext, root in (("jpeg", ready), ("png", png_root))}
+    for i in range(len(sets["jpeg"])):
+        a, b = sets["jpeg"][i], sets["png"][i]
+        if not all(np.array_equal(a[k], b[k]) for k in a):
+            raise RuntimeError(f"[raw-loader] item {i}: the JPEG and PNG splits differ")
+    rates = {}
+    for ext in RAW_LOADER_TURNS:
+        ds = sets[ext]
+        t0 = time.perf_counter()
+        for i in range(len(ds)):
+            ds[i]
+        rates.setdefault(ext, []).append(len(ds) / (time.perf_counter() - t0))
+    log(f"[raw-loader] BTXRD.__getitem__ over the {len(converted)} converted images "
+        f"(read, letterbox to {IMG}, mask, labels; one thread), turns "
+        f"{' '.join(RAW_LOADER_TURNS)}: JPEG (decoded on the card) {rates['jpeg']} img/s, the "
+        f"same pixels as PNG (the port's codec, zlib level 1) {rates['png']} img/s; items equal")
+
+    # the model over the JPEG split: cli.infer with overlays, cli.evaluate
+    cfg = ModelConfig(img_size=IMG, dtype="bfloat16")
+    model = build_model(cfg, seed=SEED, device=dev)
+    randomize(model, gen)
+    data_cfg = DataConfig(root=str(ready), img_size=IMG, image_ext=".jpeg", batch_size=BATCH)
+    host = next(iter(BTXRDLoader(BTXRD(data_cfg, "all", device=dev), BATCH, pad_last=True)))
+    images = to_device(host, dev)["image"]
+    state, shift, _, step_dir = save_for_eval(model, images, work / "checkpoints", data_cfg)
+    # cli.infer's forward normalises with the BN running statistics, the eval
+    # forward with the batch's: serve at the confidence that passes
+    # CANDIDATES anchors per image in the inference forward, as phase 4 does
+    with torch.no_grad():
+        scores = model(images.float() / 255.0)["det_preds"][..., 4:].amax(-1)
+    conf = torch.quantile(scores.float().flatten(), 1.0 - CANDIDATES / scores.shape[1]).item()
+    ckpt = work / "weights.npz"
+    save_npz(str(ckpt), *torch_to_flax(model.state_dict()))
+    del state, model, host, images, scores
+    torch.cuda.empty_cache()
+    counts = (cnb.convnext_block, k6.jpeg_idct, k6.jpeg_color)
+    for c in counts:
+        c.launches = 0
+    out = work / "infer"
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        infer.main(["--checkpoint-path", str(ckpt), "--images", *map(str, converted),
+                    "--out-dir", str(out), "--img-size", str(IMG), "--conf-thresh",
+                    repr(conf)])
+    torch.cuda.synchronize()
+    infer_s = time.perf_counter() - t0
+    infer_launches = [c.launches for c in counts]
+    records = json.loads((out / "predictions.json").read_text())
+    overlays = sorted((out / "media").glob("*.png"))
+    n = len(converted)
+    if infer_launches != [15 * n, n, n] or len(records) != n or len(overlays) != 2 * n:
+        raise RuntimeError(f"[raw-infer] launches (K1, K6a, K6b) {infer_launches}, want "
+                           f"{[15 * n, n, n]}; {len(records)} records, {len(overlays)} overlays")
+    if not all(read_png(p).shape == (IMG, IMG, 3) for p in overlays):
+        raise RuntimeError("[raw-infer] an overlay does not read back")
+    dets = [r["num_detections"] for r in records]
+    if not all(np.isfinite(r["img_cls_probs"]).all() for r in records) or sum(dets) == 0:
+        raise RuntimeError(f"[raw-infer] detections {dets}, or non-finite class probabilities")
+    log(f"[raw-infer] cli.infer.main on the {n} converted JPEGs at conf {conf:.4g} (~{CANDIDATES} "
+        f"anchors per image; weights conditioned for evaluation, class-bias shift {shift:.3f}) "
+        f"in {infer_s:.3f} s (checkpoint load, first "
+        f"calls and {2 * n} overlay PNGs included): detections {dets}; launches K1 "
+        f"{infer_launches[0]} (15 per image), K6a {infer_launches[1]}, K6b {infer_launches[2]}")
+    for c in counts:
+        c.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        metrics = evaluate.main([
+            "--checkpoint-path", str(step_dir), "--root", str(ready), "--split", "all",
+            "--batch-size", str(BATCH), "--image-ext", ".jpeg", "--run-dir", str(work / "eval"),
+            "--log-examples"])
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    eval_launches = [c.launches for c in counts]
+    batches = -(-n // BATCH)
+    if eval_launches != [15 * batches, n, n]:
+        raise RuntimeError(f"[raw-evaluate] launches (K1, K6a, K6b) {eval_launches}, want "
+                           f"{[15 * batches, n, n]}")
+    if set(metrics) != jax_evaluate_keys() or not all(np.isfinite(v) for v in metrics.values()):
+        raise RuntimeError(f"[raw-evaluate] keys or values: {metrics}")
+    log(f"[raw-evaluate] cli.evaluate.main --image-ext .jpeg over the {n} converted JPEGs "
+        f"({batches} batches of {BATCH}) in {eval_s:.3f} s: launches K1 {eval_launches[0]}, K6a "
+        f"{eval_launches[1]}, K6b {eval_launches[2]}; {len(metrics)} keys as the JAX CLI's, "
+        f"finite; box mAP50 {metrics['map_iou50_map']:.4g}, seg Dice {metrics['seg_dice']:.4g}; "
+        f"{card}")
+
+    common = {"route": "cuda", "library_ms": None,
+              "source": "multitask_bonetumor_yolo_tpu_torch/csrc/jpeg.cu",
+              "replaces": "multitask_bonetumor_yolo_tpu/data/dataset.py:67 (cv2.imread on the "
+                          "host; no TPU kernel)",
+              "max_abs_err": max_err, "shape": k6_entry["shape"]}
+    return [{"name": name, **common,
+             "launches": infer_launches[i] + eval_launches[i],
+             "infer_launches": infer_launches[i], "eval_launches": eval_launches[i],
+             "ms": k6_entry[name]["ms"], "device_ms": k6_entry[name]["device_ms"],
+             "plain_ms": k6_entry[name]["plain_ms"], "bound_ms": k6_entry[name]["bound_ms"],
+             "bound_by": k6_entry[name]["bound_by"],
+             "per_image": [{"image": r["image"], "shape": r["shape"], "gray": r["gray"],
+                            **r[name]} for r in jpeg_rows]}
+            for i, name in ((1, "jpeg_idct"), (2, "jpeg_color"))], jpeg_rows
+
+
 def check_grads(name, got, want, tol):
     """dx elementwise (atol/rtol tol); each parameter gradient, a sum over
     every pixel, to tol of its own scale. Returns (dx max abs err, largest
@@ -1229,20 +1593,60 @@ def phase_training_kernels(cnb, k2, dev, gen):
     return err_sav, err_dx, err_scale, per_stage, totals
 
 
-def device_events(run, attempts=4):
+PAD_S = 0.02  # host seconds of calls on each side of a fenced profile window
+MARK = "spin_kernel"  # torch.cuda._sleep's kernel: the fence's markers
+
+
+def pad_calls(pad):
+    """Calls of ``pad``, each waited for, until ``PAD_S`` seconds have passed."""
+    t0 = time.perf_counter()
+    while True:
+        pad()
+        torch.cuda.synchronize()
+        if time.perf_counter() - t0 >= PAD_S:
+            return
+
+
+def device_events(run, attempts=4, pad=None):
     """The device's events of ``run()`` under ``torch.profiler`` (``run``
     ends in no synchronise; this adds one), and the host-clock seconds of
     the profiled run. On the H100 machine the profiler has come back with no
     device event at all for a call that launched kernels (once, in phase
-    12); such a profile is taken again, up to ``attempts`` profiles."""
+    12); such a profile is taken again, up to ``attempts`` profiles.
+
+    With ``pad`` (one call of what ``run`` repeats) the window is fenced:
+    calls of ``pad`` run for ``PAD_S`` seconds before and after it in the
+    same profile, a marker kernel (``torch.cuda._sleep``) stands at each end
+    of ``run``, and only the events between the two markers are returned.
+    Late in the script the profiler loses the device events at the start of
+    a profile, and at times at its end (K2 at batch 8, stage 0, after the
+    raw phase: 8 of 10 calls seen with a marker after each; every call seen
+    in a fresh process; three calls of K6 on either side did not cover the
+    loss); the fence keeps those losses out of the window. A profile that
+    lost a marker is taken again."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     for attempt in range(1, attempts + 1):
         with torch.profiler.profile(activities=acts, acc_events=True) as prof:
+            if pad:
+                pad_calls(pad)
+                torch.cuda._sleep(1)
+                torch.cuda.synchronize()
             t0 = time.perf_counter()
             run()
             torch.cuda.synchronize()
             wall_s = time.perf_counter() - t0
+            if pad:
+                torch.cuda._sleep(1)
+                pad_calls(pad)
         events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if pad:
+            marks = sorted(e.time_range.start for e in events if MARK in e.name)
+            if len(marks) != 2:
+                log(f"[profile] profile {attempt} of {attempts} recorded {len(marks)} of the "
+                    "fence's 2 markers")
+                continue
+            events = [e for e in events
+                      if MARK not in e.name and marks[0] < e.time_range.start < marks[1]]
         if sum(e.device_time for e in events) > 0:
             return events, wall_s
         log(f"[profile] profile {attempt} of {attempts} recorded no device time")
@@ -1252,9 +1656,10 @@ def device_events(run, attempts=4):
 def kernel_split(fn, iters=10, attempts=3, known=None):
     """Device time and launches per call of ``fn``, by kernel (the name up to
     its argument list), from ``torch.profiler`` after one warm-up call: each
-    kernel's mean time per recorded launch times its launches per call. The
-    profiler can drop events on a loaded host (seen on the H100 machine: 9 of
-    10, and once 14 of 20, launches of a kernel recorded), so a kernel's
+    kernel's mean time per recorded launch times its launches per call, in a
+    window that :func:`device_events` fences. The profiler has dropped
+    events (seen on the H100 machine: 9 of 10, and once 14 of 20, launches
+    of a kernel recorded, before the fence), so a kernel's
     launches per call are its recorded count over ``iters`` rounded to a
     whole number; when that count is not within a quarter of a whole,
     nonzero number of launches per call, the call is profiled again, and
@@ -1280,7 +1685,7 @@ def kernel_split(fn, iters=10, attempts=3, known=None):
     fn()
     torch.cuda.synchronize()
     for attempt in range(1, attempts + 1):
-        events, _ = device_events(lambda: [fn() for _ in range(iters)])
+        events, _ = device_events(lambda: [fn() for _ in range(iters)], pad=fn)
         ms, n = defaultdict(float), defaultdict(int)
         for e in events:
             name = e.name.replace("(anonymous namespace)::", "").replace("void ", "")
@@ -2155,8 +2560,8 @@ def timed_build(name):
     return path, report, time.perf_counter() - t0
 
 
-PHASES = ("kernel", "model", "infer-cli", "eval", "trainer", "k2", "k2-split", "train", "k3",
-          "k4", "k4-split", "fwdbwd", "lab")
+PHASES = ("kernel", "model", "infer-cli", "eval", "trainer", "raw", "k2", "k2-split", "train",
+          "k3", "k4", "k4-split", "fwdbwd", "lab")
 
 
 def main(argv=None) -> int:
@@ -2182,9 +2587,10 @@ def main(argv=None) -> int:
     card = card_line()
     log(f"[card] {card}; torch {torch.__version__} cuda {torch.version.cuda}")
     dev = torch.device("cuda", 0)
-    names = ("convnext_block", "convnext_block_bwd", "dwconv", "kernel_lab", "kernel_lab_v0")
+    names = ("convnext_block", "convnext_block_bwd", "dwconv", "jpeg", "kernel_lab",
+             "kernel_lab_v0")
     if only and "lab" not in only:
-        names = names[:3]
+        names = names[:4]
     with ThreadPoolExecutor(len(names)) as ex:
         builds = dict(zip(names, ex.map(timed_build, names)))
     for name, (path, report, secs) in builds.items():
@@ -2226,6 +2632,7 @@ def main(argv=None) -> int:
         ("infer-cli", infer_cli),
         ("eval", eval_phase),
         ("trainer", lambda: phase_trainer(cnb, k2, dev, card)),
+        ("raw", lambda: phase_raw(cnb, dev, gen, card)),
         ("k2", lambda: phase_training_kernels(cnb, k2, dev, gen)),
         ("k2-split", lambda: phase_k2_split(cnb, k2, dev, gen)),
         ("train", lambda: phase_train(cnb, k2, dev, gen)),
@@ -2250,6 +2657,7 @@ def main(argv=None) -> int:
     launches = r["model"][0]
     eval_launches = r["eval"]
     trainer_launches = r["trainer"]
+    k6_entries, _ = r["raw"]
     err_sav, err_dx, err_scale, bwd_stages, tot = r["k2"]
     k2_split = r["k2-split"]
     _, n_saving, n_bwd = r["train"]
@@ -2313,6 +2721,7 @@ def main(argv=None) -> int:
         {"name": "kernel_lab", **common,
          "source": "multitask_bonetumor_yolo_tpu_torch/csrc/kernel_lab.cu",
          "replaces": "scripts/kernel_lab.py:37", **lab_entry},
+        *k6_entries,
     ]}))
     log("[block-fwdbwd] " + json.dumps({"per_stage": fb_table, "trunk_ms": fb_totals,
                                          "launches (K1, K1 saving, K2, K4, K3)": fb_launches,

@@ -23,8 +23,9 @@ Where it differs from the JAX CLI:
   ``train/checkpoint.py::CheckpointManager`` (``weights.npz`` +
   ``optimizer.pt``), not an orbax checkpoint;
 * ``--image-ext`` (default ``.jpeg``, as ``DataConfig``) picks the image
-  files: the port reads PNG with its own codec on every machine, and other
-  formats only where cv2 or PIL is installed;
+  files: the port reads PNG and JPEG with its own codecs on every machine
+  (a JPEG decoded on ``--device``), and other formats only where cv2 or PIL
+  is installed;
 * ``--device`` (default ``cuda``, the first card) raises without a card
   unless it is given ``cpu``; there is no mesh, and ``--batch-size`` is the
   whole batch.
@@ -136,7 +137,7 @@ def evaluate(args) -> dict:
     print(f"[evaluate] restored step {state.step} from {args.checkpoint_path} on {device}")
 
     eval_step = make_eval_step(model_cfg, loss_cfg, train_cfg)
-    ds = BTXRD(data_cfg, args.split)
+    ds = BTXRD(data_cfg, args.split, device=device)
     print(f"[evaluate] {len(ds)} items in split '{args.split}'")
 
     exp = ExperimentConfig(model=model_cfg, data=data_cfg, loss=loss_cfg, train=train_cfg,
@@ -188,7 +189,8 @@ def make_parser():
     ap.add_argument("--max-boxes", type=int, default=None,
                     help="defaults from the run's config.json, else 32")
     ap.add_argument("--image-ext", default=DataConfig.image_ext,
-                    help="image file suffix under images/ (.png is read on every machine)")
+                    help="image file suffix under images/ (.png and .jpeg are read on every "
+                    "machine)")
     ap.add_argument("--nc-det", type=int, default=None)
     ap.add_argument("--num-img-classes", type=int, default=None)
     ap.add_argument("--proto-ch", type=int, default=None)

@@ -4,13 +4,15 @@
         --checkpoint-path weights.npz --images img1.png img2.png --out-dir out/
 
 The flags are the JAX CLI's, except that ``--checkpoint-path`` names the
-bridge's ``.npz`` (``bridge.save_npz``; orbax checkpoints need JAX). PNG
-files are read by the port's own codec (``data/imageio.py``) on any machine;
-other formats need cv2 or PIL. Runs on
+bridge's ``.npz`` (``bridge.save_npz``; orbax checkpoints need JAX). PNG and
+JPEG files are read by the port's own codecs (``data/imageio.py``,
+``data/jpeg.py``, a JPEG decoded on ``--device``) on any machine; other
+formats need cv2 or PIL. Runs on
 ``--device`` (default ``cuda``, the first card; without one it raises unless
 the caller passes ``--device cpu``). Writes
-``predictions.json`` (and ``<stem>_masks.npy`` with ``--instance-masks``);
-the JAX CLI's overlay images are not produced.
+``predictions.json`` (and ``<stem>_masks.npy`` with ``--instance-masks``)
+and, as the JAX CLI does, each image's detection and segmentation overlays
+(``RunLogger``) under ``<out-dir>/media/``.
 
 :func:`infer_batch` is the serving entry point: uint8 NHWC letterboxed
 images in, model outputs + NMS result (+ instance masks) out.
@@ -32,6 +34,7 @@ from ..data.imageio import read_image, resize_bilinear_u8
 from ..models import ModelConfig, MultitaskModel
 from ..ops.masks import compose_masks
 from ..ops.nms import NMSResult, postprocess_detections
+from ..utils.logging import RunLogger
 
 
 class InferResult(NamedTuple):
@@ -68,10 +71,11 @@ def infer_batch(
     return InferResult(out, det, inst)
 
 
-def load_and_letterbox(path: str, img_size: int) -> np.ndarray:
+def load_and_letterbox(path: str, img_size: int, device="cuda") -> np.ndarray:
     """Top-left letterbox with gray(114) padding, uint8 [S, S, 3]; the resize
-    is always the port's own (cv2's ``INTER_LINEAR``, within 1 LSB)."""
-    img = read_image(path)
+    is always the port's own (cv2's ``INTER_LINEAR``, within 1 LSB). A JPEG
+    is decoded on ``device``."""
+    img = read_image(path, device)
     h0, w0 = img.shape[:2]
     _, nh, nw = letterbox_geometry(h0, w0, img_size)
     canvas = np.full((img_size, img_size, 3), PAD_VALUE, np.uint8)
@@ -116,16 +120,24 @@ def main(argv=None):
     out_dir = Path(args.out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
 
+    logger = RunLogger(str(out_dir))
     results = []
     for path in args.images:
-        canvas = load_and_letterbox(path, args.img_size)
+        canvas = load_and_letterbox(path, args.img_size, device)
         res = infer_batch(model, canvas[None], conf_thresh=args.conf_thresh,
                           nms_iou=args.nms_iou, top_k=args.top_k,
                           instance_masks=args.instance_masks,
                           mask_crop=not args.no_mask_crop)
         det = res.detections
         nvalid = int(det.valid[0].sum())
-        seg_prob = res.outputs["seg_prob"][0].float().cpu().numpy()
+        seg_probs = res.outputs["seg_prob"].float().cpu().numpy()
+        seg_prob = seg_probs[0]
+        imgs = canvas[None].astype(np.float32) / 255.0
+        stem = Path(path).stem
+        logger.log_det_examples(imgs, det.boxes.cpu().numpy(), det.scores.cpu().numpy(),
+                                det.labels.cpu().numpy(), det.valid.cpu().numpy(), None, None,
+                                stage=stem, step=0, conf_th=args.conf_thresh)
+        logger.log_seg_examples(imgs, seg_probs, None, stage=stem, step=0)
         rec = {
             "image": path,
             "num_detections": nvalid,
@@ -143,9 +155,10 @@ def main(argv=None):
             rec["instance_mask_areas"] = [float(m) for m in binm.mean((1, 2))]
         results.append(rec)
         print(json.dumps(rec))
+    logger.close()
     out_json = out_dir / "predictions.json"
     out_json.write_text(json.dumps(results, indent=2))
-    print(f"[infer] wrote {out_json}")
+    print(f"[infer] wrote {out_json} and overlays under {out_dir}/media/")
 
 
 if __name__ == "__main__":

@@ -11,8 +11,9 @@ label smoothing 0.1, early stop 50, mAP50-95 every 5 epochs), plus:
   unless given ``cpu``. There is no mesh: ``--batch-size`` is the whole
   batch of one step;
 * ``--image-ext`` (default ``.jpeg``, as ``DataConfig``): the image files
-  under ``root/images``. PNG is read by the port's own codec on every
-  machine, other formats only where cv2 or PIL is installed.
+  under ``root/images``. PNG and JPEG are read by the port's own codecs on
+  every machine (a JPEG decoded on ``--device``), other formats only where
+  cv2 or PIL is installed.
 
 The JAX CLI turns on XLA's persistent compilation cache first; the port
 compiles nothing per run but its CUDA kernels, which
@@ -151,7 +152,8 @@ def make_parser() -> argparse.ArgumentParser:
                     help="torch state dict of a YOLOv8-seg model for the Segment-head "
                     "warm start")
     ap.add_argument("--image-ext", default=DataConfig.image_ext,
-                    help="image file suffix under images/ (.png is read on every machine)")
+                    help="image file suffix under images/ (.png and .jpeg are read on every "
+                    "machine)")
     ap.add_argument("--device", default="cuda",
                     help="torch device to train on (default cuda; 'cpu' to run without a card)")
     return ap

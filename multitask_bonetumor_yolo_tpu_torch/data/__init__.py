@@ -2,9 +2,10 @@
 
 from .dataset import BTXRD, BTXRDLoader, DataConfig, DeviceEvalCache, Prefetcher, to_device
 from .preprocess import AugmentConfig, augment_batch, normalize
-from .synthetic import make_synthetic_btxrd, synthetic_batch
+from .synthetic import make_synthetic_btxrd, make_synthetic_raw, synthetic_batch
 
 __all__ = [
     "AugmentConfig", "BTXRD", "BTXRDLoader", "DataConfig", "DeviceEvalCache", "Prefetcher",
-    "augment_batch", "make_synthetic_btxrd", "normalize", "synthetic_batch", "to_device",
+    "augment_batch", "make_synthetic_btxrd", "make_synthetic_raw", "normalize",
+    "synthetic_batch", "to_device",
 ]

@@ -15,8 +15,9 @@ just to import):
   * the YOLO box rescale with the reference's sub-pixel drops
     (``core/letterbox.py``).
 
-Images and masks go through ``data/imageio.py``: PNG by the port's own codec
-on every machine, other formats (JPEG) through cv2 or PIL where installed.
+Images and masks go through ``data/imageio.py``: PNG and JPEG by the port's
+own codecs on every machine (a JPEG decoded on ``BTXRD``'s ``device``, the
+card by default), other formats through cv2 or PIL where installed.
 
 Host batches are fixed-shape numpy dicts::
 
@@ -67,11 +68,14 @@ class DataConfig:
 
 
 class BTXRD:
-    """Disk-backed dataset with the reference's stratified split."""
+    """Disk-backed dataset with the reference's stratified split. ``device``
+    decodes its JPEGs (``data/jpeg.py``: the card by default, "cpu" for the
+    plain decoder)."""
 
-    def __init__(self, cfg: DataConfig, split: str = "train"):
+    def __init__(self, cfg: DataConfig, split: str = "train", device="cuda"):
         self.cfg = cfg
         self.split = split.lower()
+        self.device = device
         root = Path(cfg.root)
         img_dir, det_dir, mask_dir = root / "images", root / "labels_det", root / "masks"
 
@@ -125,8 +129,8 @@ class BTXRD:
     def __getitem__(self, idx: int) -> Dict[str, np.ndarray]:
         it = self.items[idx]
         S = self.cfg.img_size
-        img = read_image(it["img"])
-        mask = read_mask(it["msk"])
+        img = read_image(it["img"], self.device)
+        mask = read_mask(it["msk"], self.device)
         h0, w0 = img.shape[:2]
 
         _, nh, nw = letterbox_geometry(h0, w0, S)

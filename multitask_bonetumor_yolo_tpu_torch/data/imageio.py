@@ -14,14 +14,15 @@ interpolation=cv2.INTER_LINEAR)`` computes:
   * :func:`read_png_gray` — the same files as uint8 ``[H, W]`` grey, as
     ``cv2.imread(path, cv2.IMREAD_GRAYSCALE)`` reads them.
   * :func:`read_image` / :func:`read_mask` — any image file as RGB / grey:
-    a PNG through the codec above, other formats through cv2, else PIL, and
-    without either an ``ImportError`` that names the PNG route.
+    a PNG through the codec above, a JPEG (found by its FFD8FF magic, not
+    its suffix) through ``ops/kernels/jpeg.py::read_jpeg`` (bit for bit
+    with ``cv2.imread``, on the card by default, on the CPU with
+    ``device="cpu"``), other formats through cv2, else PIL, and without
+    either an ``ImportError``.
   * :func:`resize_bilinear_u8` / :func:`resize_nearest_u8` — cv2's
     ``INTER_LINEAR`` (geometry and fixed-point arithmetic) and
     ``INTER_NEAREST``.
 
-JPEG is not read here: a baseline decoder in numpy would be a Huffman loop
-in Python, too slow to serve from.
 """
 
 from __future__ import annotations
@@ -31,6 +32,9 @@ import zlib
 from pathlib import Path
 
 import numpy as np
+
+from ..ops.kernels.jpeg import read_jpeg
+from .jpeg import is_jpeg
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # colour type -> samples per pixel
@@ -135,8 +139,8 @@ def read_png_gray(path) -> np.ndarray:
 
 
 def _other_format(path: str, gray: bool) -> np.ndarray:
-    """A non-PNG image through cv2, else PIL; without either it raises:
-    there is no substitute decoder."""
+    """An image that is neither PNG nor JPEG through cv2, else PIL; without
+    either it raises: there is no substitute decoder."""
     try:
         import cv2
     except ImportError:
@@ -145,8 +149,8 @@ def _other_format(path: str, gray: bool) -> np.ndarray:
         except ImportError:
             raise ImportError(
                 f"{path}: reading a {Path(path).suffix or 'suffix-less'} image needs cv2 or "
-                "PIL, and neither is installed; the port reads PNG itself "
-                "(data/imageio.py::read_png): pass .png files") from None
+                "PIL, and neither is installed; the port reads PNG and JPEG itself "
+                "(data/imageio.py::read_png, ops/kernels/jpeg.py::read_jpeg)") from None
         return np.asarray(Image.open(path).convert("L" if gray else "RGB"))
     img = cv2.imread(path, cv2.IMREAD_GRAYSCALE if gray else cv2.IMREAD_COLOR)
     if img is None:
@@ -154,20 +158,27 @@ def _other_format(path: str, gray: bool) -> np.ndarray:
     return img if gray else cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
 
 
-def read_image(path) -> np.ndarray:
-    """uint8 ``[H, W, 3]`` RGB. A ``.png`` is read by the port's own codec on
-    every machine; any other file by cv2, else PIL."""
+def read_image(path, device="cuda") -> np.ndarray:
+    """uint8 ``[H, W, 3]`` RGB. A ``.png`` is read by the port's own codec and
+    a JPEG by ``ops/kernels/jpeg.py::read_jpeg`` (on ``device``: the card by default, where
+    there is none it raises unless given "cpu") on every machine; any other
+    file by cv2, else PIL."""
     path = str(path)
     if Path(path).suffix.lower() == ".png":
         return read_png(path)
+    if is_jpeg(path):
+        return read_jpeg(path, device=device)
     return _other_format(path, gray=False)
 
 
-def read_mask(path) -> np.ndarray:
-    """uint8 ``[H, W]`` grey, as :func:`read_image` picks the decoder."""
+def read_mask(path, device="cuda") -> np.ndarray:
+    """uint8 ``[H, W]`` grey, as :func:`read_image` picks the decoder (a
+    JPEG's grey read is libjpeg's: the Y plane of a colour file)."""
     path = str(path)
     if Path(path).suffix.lower() == ".png":
         return read_png_gray(path)
+    if is_jpeg(path):
+        return read_jpeg(path, gray=True, device=device)
     return _other_format(path, gray=True)
 
 

@@ -2,21 +2,26 @@
 dataset on disk (counterpart of the JAX ``data/synthetic.py``).
 
 ``make_synthetic_btxrd`` draws the JAX function's arrays from the same
-``RandomState`` and writes the images as PNG (``<stem>.png``, named so in
-``img_cls.csv``), which the port's own codec reads on every machine; the JAX
-function writes JPEG. ``make_synthetic_raw`` (the converter's input) is not
-ported yet.
+``RandomState`` and writes the images as PNG by default (``<stem>.png``,
+named so in ``img_cls.csv``), or, with ``image_format="jpeg"``, as the JAX
+function does: ``<stem>.jpeg`` through ``data/jpeg.py::write_jpeg``, the
+same bytes as the ``cv2.imwrite`` that the JAX function calls.
+``make_synthetic_raw`` emits the converter's input (labelme
+``Annotations/*.json``, JPEG ``images/``, ``dataset.csv``) with the JAX
+function's draws, JSON and bytes.
 """
 
 from __future__ import annotations
 
 from pathlib import Path
+import json
 from typing import Dict
 
 import numpy as np
 import torch
 
 from .imageio import write_png
+from .jpeg import write_jpeg
 
 
 def synthetic_batch(b: int, img: int, gen: torch.Generator) -> Dict[str, torch.Tensor]:
@@ -86,14 +91,18 @@ def make_synthetic_btxrd(
     min_size: int = 320,
     max_size: int = 960,
     rich: bool = False,
+    image_format: str = "png",
 ) -> Path:
-    """A training-ready synthetic dataset under ``dst``: ``images/*.png``,
-    ``labels_det/*.txt``, ``masks/*.png`` and ``img_cls.csv``.
+    """A training-ready synthetic dataset under ``dst``: ``images/*.png``
+    (``*.jpeg`` with ``image_format="jpeg"``), ``labels_det/*.txt``,
+    ``masks/*.png`` and ``img_cls.csv``.
 
     ``rich=False``: 1-3 bright GT-aligned rectangles per image (cheap, for
     smoke tests). ``rich=True``: class-discriminative lesion shapes —
     smooth ellipses (class 0) vs irregular textured stars (class 1) over a
     vignetted noisy 'radiograph' background."""
+    if image_format not in ("png", "jpeg"):
+        raise ValueError(f"image_format must be 'png' or 'jpeg', got {image_format!r}")
     rng = np.random.RandomState(seed)
     root = Path(dst)
     for d in ("images", "labels_det", "masks"):
@@ -147,10 +156,52 @@ def make_synthetic_btxrd(
                 )
 
         stem = f"synth_{i:04d}"
-        write_png(root / "images" / f"{stem}.png", img, level=1)
+        if image_format == "jpeg":
+            write_jpeg(root / "images" / f"{stem}.jpeg", img)
+        else:
+            write_png(root / "images" / f"{stem}.png", img, level=1)
         (root / "labels_det" / f"{stem}.txt").write_text("\n".join(lines))
         write_png(root / "masks" / f"{stem}.png", mask, level=1)
-        rows.append(f"{stem}.png,{cls_id}")
+        rows.append(f"{stem}.{image_format},{cls_id}")
 
     (root / "img_cls.csv").write_text("\n".join(rows) + "\n")
+    return root
+
+
+def make_synthetic_raw(dst: str, n: int = 8, seed: int = 0) -> Path:
+    """Converter-input synthetic dataset: labelme JSONs + JPEG images + meta
+    csv (the JAX function's draws, files and bytes)."""
+    rng = np.random.RandomState(seed)
+    root = Path(dst)
+    (root / "Annotations").mkdir(parents=True, exist_ok=True)
+    (root / "images").mkdir(parents=True, exist_ok=True)
+
+    meta_lines = ["image_id,tumor,benign"]
+    for i in range(n):
+        h, w = int(rng.randint(300, 600)), int(rng.randint(300, 600))
+        stem = f"raw_{i:04d}"
+        img = (rng.rand(h, w, 3) * 60 + 20).astype(np.uint8)
+        write_jpeg(root / "images" / f"{stem}.jpeg", img)
+
+        x1, y1 = int(rng.randint(0, w // 2)), int(rng.randint(0, h // 2))
+        x2, y2 = x1 + int(rng.randint(30, w // 2)), y1 + int(rng.randint(30, h // 2))
+        shapes = [
+            {
+                "label": "tumor",
+                "shape_type": "rectangle",
+                "points": [[x1, y1], [x2, y2]],
+            },
+            {
+                "label": "tumor",
+                "shape_type": "polygon",
+                "points": [[x1, y1], [x2, y1], [x2, y2], [x1, y2]],
+            },
+        ]
+        ann = {"imageHeight": h, "imageWidth": w, "shapes": shapes}
+        (root / "Annotations" / f"{stem}.json").write_text(json.dumps(ann))
+        benign = int(i % 2 == 0)
+        # every synthetic image is a tumor image; alternate benign/malignant
+        meta_lines.append(f"{stem}.jpeg,1,{benign}")
+
+    (root / "dataset.csv").write_text("\n".join(meta_lines) + "\n")
     return root

@@ -1,6 +1,8 @@
 """Build the CUDA sources under ``csrc/`` at first use and load them.
 
-Each ``csrc/<name>.cu`` has a plain C interface. It is compiled with
+One library per ``csrc/<name>.cu``: ``convnext_block`` (K1), ``convnext_block_bwd``
+(K2, K4), ``dwconv`` (K3), ``jpeg`` (K6 and its host entropy decoder),
+``kernel_lab`` and ``kernel_lab_v0`` (K5). Each has a plain C interface. It is compiled with
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -o build/kernels/<name>-<hash>.so csrc/<name>.cu

@@ -218,8 +218,8 @@ class Trainer:
         self.cfg = cfg
         self.logger = RunLogger(cfg.run_dir, cfg.wandb_project)
         self.global_batch = cfg.data.batch_size
-        self.train_ds = BTXRD(cfg.data, "train")
-        self.val_ds = BTXRD(cfg.data, "val")
+        self.train_ds = BTXRD(cfg.data, "train", device=self.device)
+        self.val_ds = BTXRD(cfg.data, "val", device=self.device)
         if len(self.train_ds) == 0:
             raise RuntimeError(f"No training data under {cfg.data.root}")
         steps = max(1, len(self.train_ds) // self.global_batch)

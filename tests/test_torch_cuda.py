@@ -696,31 +696,45 @@ def test_augment_batch_on_card_matches_cpu(dev):
     assert out["image"].shape == (2, s, s, 3) and out["image"].device.type == "cuda"
 
 
-def test_trainer_epoch_on_card(dev, tmp_path):
+@pytest.mark.parametrize("fmt", ["png", "jpeg"])
+def test_trainer_epoch_on_card(dev, tmp_path, monkeypatch, fmt):
     """One epoch of ``Trainer.fit`` on the card at a tiny config (128 px,
     depths 1/1/1/1 at widths 48/96/192/384, BiFPN 64, bf16, 16 synthetic
-    PNGs: 1 step of 8, 1 val batch): the step launches K1's saving form and
-    K2 once per block (4) and K1 none, the validation forward K1 4 times;
+    PNGs or JPEGs: 1 step of 8, 1 val batch): the step launches K1's saving
+    form and K2 once per block (4) and K1 none, the validation forward K1 4
+    times; from JPEGs, which the loader's thread and the val cache's primer
+    decode on the card at once, K6a and K6b launch once per JPEG read;
     finite losses; the last checkpoint written."""
     import json
 
-    from multitask_bonetumor_yolo_tpu_torch.data import DataConfig, make_synthetic_btxrd
+    from multitask_bonetumor_yolo_tpu_torch.data import DataConfig, imageio, make_synthetic_btxrd
+    from multitask_bonetumor_yolo_tpu_torch.ops.kernels import jpeg as k6
     from multitask_bonetumor_yolo_tpu_torch.losses import LossConfig
     from multitask_bonetumor_yolo_tpu_torch.models import ModelConfig
     from multitask_bonetumor_yolo_tpu_torch.train import TrainConfig
     from multitask_bonetumor_yolo_tpu_torch.train.loop import ExperimentConfig, Trainer
 
     img = 128
-    root = make_synthetic_btxrd(str(tmp_path / "d"), n=16, seed=11, min_size=96, max_size=200)
+    root = make_synthetic_btxrd(str(tmp_path / "d"), n=16, seed=11, min_size=96, max_size=200,
+                               image_format=fmt)
+    reads = []
+    read_jpeg = imageio.read_jpeg
+
+    def counted_read(*args, **kw):
+        reads.append(1)  # list.append is atomic: both reading threads land here
+        return read_jpeg(*args, **kw)
+
+    monkeypatch.setattr(imageio, "read_jpeg", counted_read)
     cfg = ExperimentConfig(
         model=ModelConfig(img_size=img, single_head=True, backbone_depths=(1, 1, 1, 1),
                           backbone_dims=(48, 96, 192, 384), bifpn_num_layers=1,
                           bifpn_feature_size=64, proto_ch=8, dtype="bfloat16"),
         data=DataConfig(root=str(root), img_size=img, max_boxes=8, batch_size=8,
-                        image_ext=".png"),
+                        image_ext=f".{fmt}"),
         loss=LossConfig(img_size=img, iou_match_thresh=0.15),
         train=TrainConfig(lr=3e-4, max_epochs=1, seed=0, eval_top_k=10),
         run_dir=str(tmp_path / "run"), log_every=1)
+    decodes = (k6.jpeg_idct.launches, k6.jpeg_color.launches)
     trainer = Trainer(cfg)
     assert trainer.state.mu.device.type == "cuda" and trainer.train_cfg.steps_per_epoch == 1
     counts = (cnb.convnext_block, cnb.convnext_block_saving, k2.convnext_block_bwd)
@@ -739,7 +753,65 @@ def test_trainer_epoch_on_card(dev, tmp_path):
     trainer.fit()
     torch.cuda.synchronize()
     assert calls == [(0, 4, 4), (4, 0, 0)]
+    want = len(reads)
+    assert (want > 0) == (fmt == "jpeg")
+    assert (k6.jpeg_idct.launches - decodes[0], k6.jpeg_color.launches - decodes[1]) == (want, want)
     recs = [json.loads(line) for line in (tmp_path / "run" / "metrics.jsonl").open()]
     losses = [v for r in recs for k, v in r.items() if "/loss_" in k]
     assert losses and all(np.isfinite(v) for v in losses)
     assert (trainer.ckpt.last_path() / "weights.npz").exists()
+
+
+def jpeg_fixtures():
+    """Seeded JPEG files made by the port's own writer (the card's machine has
+    no cv2): three odd sizes in every sampling, a restart interval, grey."""
+    from multitask_bonetumor_yolo_tpu_torch.data import jpeg
+
+    rs = np.random.RandomState(5)
+    files = []
+    for h, w in ((37, 53), (64, 48), (129, 97)):
+        yy, xx = np.mgrid[0:h, 0:w]
+        base = (np.sin(xx / 7.0) + np.cos(yy / 5.0)) * 60 + 128
+        img = np.clip(np.stack([base, base[::-1], np.roll(base, 5, 1)], -1)
+                      + rs.randint(0, 40, (h, w, 3)), 0, 255).astype(np.uint8)
+        for sampling in ("444", "422", "440", "420"):
+            files.append(jpeg.encode_jpeg(img, 75, sampling=sampling))
+        files.append(jpeg.encode_jpeg(img, 95, restart=2))
+        files.append(jpeg.encode_jpeg(img[..., 1], 90))
+    return files
+
+
+def test_jpeg_kernels_match_plain(dev):
+    """K6 (the C entropy decoder, K6a and K6b) against the plain version
+    (the Python entropy decoder and the integer torch pipeline): 0 differing
+    bytes in colour and grey reads, one launch of each kernel per read."""
+    from multitask_bonetumor_yolo_tpu_torch.ops.kernels import jpeg as k6
+
+    for data in jpeg_fixtures():
+        for gray in (False, True):
+            before = (k6.jpeg_idct.launches, k6.jpeg_color.launches)
+            got = k6.decode_jpeg(data, gray=gray, device=dev)
+            assert (k6.jpeg_idct.launches, k6.jpeg_color.launches) == (before[0] + 1,
+                                                                       before[1] + 1)
+            want = k6.decode_jpeg(data, gray=gray, device="cpu")
+            assert got.dtype == np.uint8 and np.array_equal(got, want), (len(data), gray)
+
+
+def test_jpeg_host_entropy_matches_python(dev):
+    """The C entropy decoder equals the Python one coefficient for
+    coefficient, and both raise ValueError on a truncated scan; the C decoder
+    refuses a scan of no or more than 4 components before it reads anything."""
+    from multitask_bonetumor_yolo_tpu_torch.data import jpeg
+    from multitask_bonetumor_yolo_tpu_torch.ops.kernels import jpeg as k6
+
+    for data in jpeg_fixtures():
+        frame = jpeg.parse(data)
+        got = k6.entropy_decode(data, frame, pin=True).numpy()
+        assert np.array_equal(got, jpeg.entropy_decode_py(data, frame))
+        cut = data[:len(data) // 2]
+        for decode in (lambda: k6.entropy_decode(cut, jpeg.parse(cut)),
+                       lambda: jpeg.entropy_decode_py(cut, jpeg.parse(cut))):
+            with pytest.raises(ValueError, match="truncated|corrupt"):
+                decode()
+    for ns in (0, 5):
+        assert k6._library().jpeg_entropy_scan(b"", 0, 0, ns, None, None, 0, 0, 0, None) == 3

@@ -115,13 +115,23 @@ def test_load_and_letterbox_matches_jax_dataset_path(tmp_path):
 
 
 def test_jpeg_without_cv2_or_pil_names_the_png_route(tmp_path, monkeypatch):
-    """With cv2 and PIL hidden, a JPEG raises ImportError naming the PNG
-    route; a PNG is still read."""
+    """With cv2 and PIL hidden, the port's own routes read both formats: a
+    JPEG through ``data/jpeg.py`` (``load_and_letterbox`` equals what it gave
+    with cv2 importable, and the JPEG read equals cv2's), ``BTXRD`` reads a
+    JPEG split, and a PNG is still read by the PNG codec."""
+    from multitask_bonetumor_yolo_tpu_torch.data import dataset, synthetic
+
     img = make_image(16, 24, seed=4)
     cv2.imwrite(str(tmp_path / "a.jpeg"), img)
     imageio.write_png(tmp_path / "a.png", img)
+    root = synthetic.make_synthetic_btxrd(str(tmp_path / "d"), n=2, min_size=40, max_size=60,
+                                          image_format="jpeg")
+    want = infer.load_and_letterbox(str(tmp_path / "a.jpeg"), 32, "cpu")
+    cv2_rgb = cv2.imread(str(tmp_path / "a.jpeg"))[..., ::-1]
     monkeypatch.setitem(__import__("sys").modules, "cv2", None)
     monkeypatch.setitem(__import__("sys").modules, "PIL", None)
-    with pytest.raises(ImportError, match=r"neither is installed.*PNG"):
-        infer.load_and_letterbox(str(tmp_path / "a.jpeg"), 32)
+    assert np.array_equal(infer.load_and_letterbox(str(tmp_path / "a.jpeg"), 32, "cpu"), want)
+    assert np.array_equal(imageio.read_image(tmp_path / "a.jpeg", device="cpu"), cv2_rgb)
     assert infer.load_and_letterbox(str(tmp_path / "a.png"), 32).shape == (32, 32, 3)
+    ds = dataset.BTXRD(dataset.DataConfig(root=str(root), img_size=32), "all", device="cpu")
+    assert len(ds) == 2 and ds[0]["image"].shape == (32, 32, 3)

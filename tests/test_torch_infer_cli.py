@@ -1,6 +1,7 @@
 """The port's inference CLI on the CPU: the bridge's inverse walk
 (``torch_to_flax``), ``cli.infer.main`` on PNG files against ``infer_batch``,
-and the block dispatch of ``models/backbone.py::use_kernel``."""
+its overlay images on JPEG files against the JAX ``RunLogger``'s, and the
+block dispatch of ``models/backbone.py::use_kernel``."""
 
 import json
 import types
@@ -11,7 +12,9 @@ import torch
 
 from multitask_bonetumor_yolo_tpu_torch.bridge import flax_to_torch, save_npz, torch_to_flax
 from multitask_bonetumor_yolo_tpu_torch.cli import infer
-from multitask_bonetumor_yolo_tpu_torch.data.imageio import write_png
+from multitask_bonetumor_yolo_tpu.utils.logging import RunLogger as JaxRunLogger
+from multitask_bonetumor_yolo_tpu_torch.data.imageio import read_png, write_png
+from multitask_bonetumor_yolo_tpu_torch.data.jpeg import write_jpeg
 from multitask_bonetumor_yolo_tpu_torch.models import ModelConfig, build_model
 from multitask_bonetumor_yolo_tpu_torch.models.backbone import use_kernel
 from test_torch_model import one_torch_thread  # noqa: F401 (autouse)
@@ -80,6 +83,48 @@ def test_main_on_png_matches_infer_batch(served, tmp_path, capsys):
         assert rec["scores"] == res.detections.scores[0, :n].tolist()
         assert rec["labels"] == res.detections.labels[0, :n].tolist()
         assert rec["img_cls_probs"] == res.outputs["cls_probs"][0].float().tolist()
+
+
+def test_main_overlays_match_jax_run_logger(served, tmp_path, capsys):
+    """``main`` on two JPEGs (written by the port's writer, read on the CPU)
+    writes, per image, the detection and segmentation overlays that the JAX
+    CLI writes: the PNGs under ``media/`` equal what the JAX ``RunLogger``'s
+    ``log_det_examples`` / ``log_seg_examples`` write when handed the port's
+    own NMS output and seg probabilities for the same canvas."""
+    model = served
+    ckpt = tmp_path / "w.npz"
+    save_npz(str(ckpt), *torch_to_flax(model.state_dict()))
+    rng = np.random.RandomState(6)
+    paths = []
+    for name, (h, w) in (("a.jpeg", (48, 64)), ("b.jpeg", (70, 50))):
+        write_jpeg(tmp_path / name, rng.randint(0, 256, (h, w, 3)).astype(np.uint8))
+        paths.append(str(tmp_path / name))
+    out, ref = tmp_path / "out", tmp_path / "ref"
+    conf = 0.05
+    infer.main(["--checkpoint-path", str(ckpt), "--images", *paths, "--out-dir", str(out),
+                "--img-size", str(SIZE), "--dtype", "float32", "--conf-thresh", str(conf),
+                "--device", "cpu"])
+    capsys.readouterr()
+    jax_logger = JaxRunLogger(str(ref))
+    for path in paths:
+        canvas = infer.load_and_letterbox(path, SIZE, "cpu")
+        res = infer.infer_batch(model, canvas[None], conf_thresh=conf)
+        det = res.detections
+        assert int(det.valid.sum()) > 0
+        imgs = canvas[None].astype(np.float32) / 255.0
+        stem = path.rsplit("/", 1)[1].split(".")[0]
+        jax_logger.log_det_examples(imgs, det.boxes.numpy(), det.scores.numpy(),
+                                    det.labels.numpy(), det.valid.numpy(), None, None,
+                                    stage=stem, step=0, conf_th=conf)
+        jax_logger.log_seg_examples(imgs, res.outputs["seg_prob"].float().numpy(), None,
+                                    stage=stem, step=0)
+    jax_logger.close()
+    names = sorted(p.name for p in (ref / "media").glob("*.png"))
+    assert names == ["det_a_0_0.png", "det_b_0_0.png", "seg_a_0_0.png", "seg_b_0_0.png"]
+    assert sorted(p.name for p in (out / "media").glob("*.png")) == names
+    for name in names:
+        got, want = read_png(out / "media" / name), read_png(ref / "media" / name)
+        assert np.array_equal(got, want), name
 
 
 def fake(device, dim):

@@ -173,9 +173,10 @@ def test_compose_masks_matches_jax(crop, img_size):
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port leaves jax out of sys.modules (a
-    subprocess: this test process has jax loaded by conftest). The walk must
-    reach the evaluation and training paths' modules."""
+    """Importing every module of the port leaves jax, cv2 and PIL out of
+    sys.modules (a subprocess: this test process has jax loaded by
+    conftest). The walk must reach the evaluation, training and raw-BTXRD
+    paths' modules."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         import multitask_bonetumor_yolo_tpu_torch as pkg
@@ -183,13 +184,16 @@ def test_port_imports_no_jax():
         for name in names:
             importlib.import_module(name)
         bad = sorted(m for m in sys.modules
-                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax")
+                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
+                                            "cv2", "PIL")
                      or m.startswith("multitask_bonetumor_yolo_tpu."))
         eval_path = ("metrics", "metrics.classification", "metrics.segmentation",
                      "metrics.detection", "data.dataset", "data.synthetic",
                      "train.checkpoint", "train.loop", "train.steps", "utils.logging",
                      "cli.evaluate", "cli.train", "data.preprocess", "ops.resize",
-                     "utils.profiling", "utils.import_torch_weights")
+                     "utils.profiling", "utils.import_torch_weights", "data.jpeg",
+                     "ops.kernels.jpeg", "data.convert", "utils.xlsx", "cli.prepare_data",
+                     "cli.wrangle", "cli.show_sample", "cli.infer")
         missing = sorted(m for m in eval_path if f"{pkg.__name__}.{m}" not in names)
         print(len(names), bad, missing)
         sys.exit(1 if bad or missing or len(names) < 30 else 0)
