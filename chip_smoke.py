@@ -163,7 +163,32 @@ is printed):
      gives each epoch's ``PhaseTimer`` split, "[trainer-time]" the train
      img/s over epoch 1, the validation seconds of epoch 0 (primed) and 1
      (replayed), the checkpoint seconds and the peak device memory.
- 16. "raw" (after "trainer"): the first day from raw BTXRD. 24 labelme
+ 16. "ddp" (after "trainer"): data parallelism, N ranks against 1: NCCL
+     over every card when there are at least 2, else two ranks on the one
+     card over gloo (the route is printed). N ranks spawned by
+     ``parallel.dist.spawn`` (each joins the group; the CLIs run as its
+     rank, torchrun's route) each run ``cli.train.main`` for one epoch over
+     phase 15's split (per-rank batch 8 / N; finished, finite, checkpointed;
+     "[ddp-train]": the epoch's img/s beside phase 15's one rank); then two
+     train steps of the full-width v1 model (``randomize``'s weights from
+     SEED; 640^2, HSV + flip, ``pallas`` and ``block_bwd`` "auto") on their
+     rows of a global batch of 8, in bf16 and again in fp32 (TF32 off), and
+     ``cli.evaluate.main`` on the trained checkpoint (fp32, split all),
+     against the same in this process on one rank: bf16, the loss per step
+     within 1e-2, grad_norm at step 1 within 3e-2, the BN statistics
+     within 1e-2 (p2 - p0 is printed beside one rank's own spread: the
+     trunk's gradient is mostly bf16 noise behind the neck's train-mode
+     BNs); fp32, the loss within 1e-4, grad_norm 1e-3, p2 - p0 within 3e-2
+     relative norm on the elements whose gradient is at least 0.3 x its
+     tensor's RMS at both steps, the conv biases in front of a train-mode
+     BN by their gradients (1e-3 of the largest element), the BN
+     statistics 1e-3; the ranks' states equal bit for bit; K1's saving
+     form and K2 15 launches per step on every rank, K1 15 per evaluation
+     forward on every rank; the evaluation's every key within 3e-2 of
+     max(1, |value|) ("[ddp]", "[ddp-evaluate]"); "[ddp-time]": per rank
+     the bf16 step (CUDA events), the upload of its rows and the gradient
+     all-reduce (its bytes counted).
+ 17. "raw" (after "ddp"): the first day from raw BTXRD. 24 labelme
      JSONs + JPEGs of 300-600 px (``make_synthetic_raw``, the port's JPEG
      writer) and two 2560x2048 JPEGs (colour 4:2:0, grey); ``cli.prepare_data``
      (``--emit-seg-polygons``), ``cli.wrangle``, ``cli.show_sample`` ("[prepare]");
@@ -184,7 +209,7 @@ is printed):
      the split ("[raw-evaluate]"; the JAX CLI's keys, finite).
 Each phase sets the launch counts to 0 right before the path it drives and
 reads them right after; the K3 and K4 launches of the kernels line are
-those of phase 12's pass over the trunk, K6a's and K6b's those of phase 16's
+those of phase 12's pass over the trunk, K6a's and K6b's those of phase 17's
 ``cli.infer`` and ``cli.evaluate``. Prints the kernels' JSON line, the card's line, and
 last ``{"ok": true, "device": {...}}``.
 """
@@ -903,7 +928,8 @@ def phase_eval(cnb, model, dev, card):
         metrics = evaluate.main([
             "--checkpoint-path", str(step_dir), "--root", str(root), "--split", "all",
             "--batch-size", str(BATCH), "--image-ext", ".png", "--epochs", "2",
-            "--log-examples", "--map-thresholds", "1", "10", "100", "--run-dir", str(run_dir)])
+            "--log-examples", "--map-thresholds", "1", "10", "100", "--run-dir", str(run_dir),
+            "--nproc", "1"])
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t0
     launches = cnb.convnext_block.launches
@@ -968,7 +994,7 @@ def phase_trainer(cnb, k2, dev, card):
     the CPU on fixed draws. Each train step must launch K1's saving form
     and K2 15 times and no K1, each validation forward K1 15 times and
     neither of the others. Returns the launches of the first run, (K1, K1
-    saving, K2)."""
+    saving, K2), and epochs 0's and 1's training rates (img/s)."""
     import numpy as np
 
     from multitask_bonetumor_yolo_tpu_torch.cli import evaluate
@@ -998,7 +1024,7 @@ def phase_trainer(cnb, k2, dev, card):
     counts = (cnb.convnext_block, cnb.convnext_block_saving, k2.convnext_block_bwd)
     run_dir = work / "run"
     argv = ["--root", str(root), "--run-dir", str(run_dir), "--img-size", str(IMG),
-            "--batch-size", str(TRAIN_BATCH), "--image-ext", ".png", "--log-every", "1",
+            "--batch-size", str(TRAIN_BATCH), "--image-ext", ".png", "--log-every", "1", "--nproc", "1",
             *TRAINER_AUG]
 
     def run_main(extra):
@@ -1082,9 +1108,10 @@ def phase_trainer(cnb, k2, dev, card):
     # the step's device work)
     train_s = e1["epoch_time_s"] - sum(e1.get(f"phase_{k}_s", 0.0)
                                        for k in ("validate", "checkpoint", "viz"))
+    rate = steps * TRAIN_BATCH / train_s
     log(f"[trainer-time] cli.train.main, {TRAINER_EPOCHS} epochs of {steps} steps "
         f"(batch {TRAIN_BATCH}, {IMG}^2 bf16, HSV + flip, PNG input): {first_s:.3f} s in all; "
-        f"epoch 1 trains at {steps * TRAIN_BATCH / train_s:.2f} img/s (host clock, the epoch "
+        f"epoch 1 trains at {rate:.2f} img/s (host clock, the epoch "
         f"less validation and checkpoint: {train_s:.3f} s, of which waiting for batches "
         f"{e1['phase_data_s']:.3f} s and issuing the steps {e1['phase_train_step_s']:.3f} s); "
         f"validation {epochs[0]['phase_validate_s']:.3f} s (epoch 0, primed) / "
@@ -1111,7 +1138,7 @@ def phase_trainer(cnb, k2, dev, card):
     last = ckpt_dir / f"step_{(TRAINER_EPOCHS + 1) * steps:08d}"
     with contextlib.redirect_stdout(io.StringIO()):
         metrics = evaluate.main(["--checkpoint-path", str(last), "--root", str(root),
-                                 "--split", "val", "--batch-size", str(TRAIN_BATCH),
+                                 "--split", "val", "--batch-size", str(TRAIN_BATCH), "--nproc", "1",
                                  "--image-ext", ".png", "--run-dir", str(work / "eval")])
     keys = ("map_iou50_map", "seg_dice", "img_accuracy", "loss_total")
     apart = {k: abs(metrics[k] - val[k]) for k in keys}
@@ -1146,7 +1173,389 @@ def phase_trainer(cnb, k2, dev, card):
         f"fixed draws: boxes, valid, masks, img_cls, id equal; images max_abs_err {err:.3e} "
         f"(limit 1e-5); with draws from a generator on the card: batch "
         f"{tuple(on_card['image'].shape)}")
-    return launches
+    e0 = epochs[0]
+    rate0 = steps * TRAIN_BATCH / (e0["epoch_time_s"] - sum(
+        e0.get(f"phase_{k}_s", 0.0) for k in ("validate", "checkpoint", "viz")))
+    return launches, (rate0, rate)
+
+
+DDP_GLOBAL = 8  # the global batch of the step check (the train path's batch)
+DDP_STEPS, DDP_TIMED = 2, 3  # checked steps, then timed ones
+DDP_AUG = dict(hsv_h=0.015, hsv_s=0.7, hsv_v=0.4, hflip_prob=0.5)  # TRAINER_AUG
+# N ranks against 1 (relative; at most the bf16 kernel tolerance). bf16, the
+# main path: the loss per step, grad_norm at step 1 (from the same weights),
+# the BN statistics after both steps. fp32 (TF32 off, K1 and K2 in their
+# fp32 designs), the same weights: the loss and grad_norm per step, p2 - p0
+# on the elements whose gradient is strong, the noise-gradient biases' by
+# their gradients, the BN statistics. In bf16 the trunk's gradient is mostly
+# rounding noise (the neck's train-mode BNs cancel most of it), which
+# depends on the order of the sums: one rank run twice already parts in
+# p2 - p0 (printed beside the 2-rank figure, not held).
+DDP_TOL = {"bf16": {"loss": 1e-2, "grad_norm": 3e-2, "bn": 1e-2},
+           "fp32": {"loss": 1e-4, "grad_norm": 1e-3, "update": 3e-2, "noise_grad": 1e-3,
+                    "bn": 1e-3},
+           "evaluate": 3e-2}
+DDP_STRONG = 0.3  # an element's update is held where |g| >= this x its tensor's RMS, both steps
+DDP_ALLREDUCE_ITERS = 5
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """TF32 off for cuDNN and matmuls inside the block (fp32 comparisons)."""
+    flags = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+
+
+def ddp_route():
+    """(ranks, backend): NCCL over every card when there are 2 or more, else
+    two ranks sharing the one card over gloo (NCCL refuses that)."""
+    n = torch.cuda.device_count()
+    return (n, "nccl") if n >= 2 else (2, "gloo")
+
+
+def ddp_state(dev, **over):
+    """The full-width v1 train state (640^2, bf16, pallas and block_bwd
+    "auto", or ``ModelConfig`` fields ``over``) from SEED with
+    ``randomize``'s weights, alike on every rank."""
+    from multitask_bonetumor_yolo_tpu_torch.models import ModelConfig, build_model
+    from multitask_bonetumor_yolo_tpu_torch.train import TrainConfig, create_train_state
+
+    cfg = ModelConfig(**{"img_size": IMG, "dtype": "bfloat16", **over})
+    model = build_model(cfg, seed=SEED, device=dev)
+    randomize(model, torch.Generator(device=dev).manual_seed(SEED))
+    return create_train_state(cfg, TrainConfig(), model=model)
+
+
+def ddp_steps(dev, mesh, timed=False, **over) -> dict:
+    """DDP_STEPS train steps of ``ddp_state(dev, **over)`` on ``mesh``'s rows
+    of the global batch (``synthetic_batch`` from SEED, its mask as the
+    loader's uint8), HSV and flip. Per step: the metrics, the launches (K1,
+    K1 saving, K2) and the gradient the optimizer applied (summed over the
+    ranks); then p2 - p0 and the BN statistics. ``timed``: also the upload's
+    ms (``shard_batch``: this rank's rows, pinned, non-blocking), DDP_TIMED
+    more steps' ms (CUDA events) and the all-reduce's ms for the gradient's
+    bytes."""
+    import numpy as np
+
+    from multitask_bonetumor_yolo_tpu_torch.data.preprocess import AugmentConfig
+    from multitask_bonetumor_yolo_tpu_torch.data.synthetic import synthetic_batch
+    from multitask_bonetumor_yolo_tpu_torch.losses import LossConfig
+    from multitask_bonetumor_yolo_tpu_torch.ops.kernels import convnext_block as cnb
+    from multitask_bonetumor_yolo_tpu_torch.ops.kernels import convnext_block_bwd as k2
+    from multitask_bonetumor_yolo_tpu_torch.parallel import dist, shard_batch
+    from multitask_bonetumor_yolo_tpu_torch.train import make_train_step
+
+    host = {k: v.numpy() for k, v in
+            synthetic_batch(DDP_GLOBAL, IMG, torch.Generator().manual_seed(SEED)).items()}
+    host["mask"] = host["mask"].astype(np.uint8)
+    upload_ms = []
+    for _ in range(5 if timed else 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batch = shard_batch(host, mesh)
+        torch.cuda.synchronize()
+        upload_ms.append((time.perf_counter() - t0) * 1e3)
+    state = ddp_state(dev, **over)
+    p0 = torch.cat([p.detach().reshape(-1).float() for p in state.params()])
+    applied = []
+    apply = state.apply_gradients
+
+    def recording(grads, bn_before):
+        applied.append(torch.cat([torch.zeros(p.numel(), device=p.device) if g is None
+                                  else g.reshape(-1).float() for p, g in zip(state.params(), grads)]))
+        return apply(grads, bn_before)
+
+    state.apply_gradients = recording
+    step = make_train_step(state.model.cfg, LossConfig(img_size=IMG), AugmentConfig(**DDP_AUG))
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    counts = (cnb.convnext_block, cnb.convnext_block_saving, k2.convnext_block_bwd)
+    metrics, launches = [], []
+    for _ in range(DDP_STEPS):
+        torch.cuda.synchronize()
+        reset_counts(*counts)
+        state, m, _ = step(state, batch, gen)
+        torch.cuda.synchronize()
+        launches.append(tuple(fn.launches for fn in counts))
+        metrics.append({k: float(v) for k, v in m.items()})
+    out = {"metrics": metrics, "launches": launches, "applied": [a.cpu() for a in applied],
+           "names": [n for n, _ in state.model.named_parameters()],
+           "sizes": [p.numel() for p in state.params()],
+           "update": torch.cat([p.detach().reshape(-1).float() for p in state.params()]).sub(p0)
+           .cpu(), "bn": state.bn_snapshot().cpu(), "upload_ms": float(np.median(upload_ms))}
+    state.apply_gradients = apply
+    if not timed:
+        return out
+    step_ms = []
+    for _ in range(DDP_TIMED):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        state, _, _ = step(state, batch, gen)
+        e1.record()
+        torch.cuda.synchronize()
+        step_ms.append(e0.elapsed_time(e1))
+    out["step_ms"] = float(np.median(step_ms))
+    flat = torch.zeros(p0.numel(), device=dev)
+    ar_ms = []
+    for _ in range(DDP_ALLREDUCE_ITERS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dist.sum_(flat)
+        torch.cuda.synchronize()
+        ar_ms.append((time.perf_counter() - t0) * 1e3)
+    out["allreduce_ms"], out["allreduce_bytes"] = float(np.median(ar_ms[1:])), flat.numel() * 4
+    return out
+
+
+def ddp_checks(dev, mesh) -> dict:
+    """The step check's runs on ``mesh``: bf16 (the main path, timed) and
+    fp32 with TF32 off, from the same weights."""
+    out = {"bf16": ddp_steps(dev, mesh, timed=True)}
+    with no_tf32():
+        out["fp32"] = ddp_steps(dev, mesh, dtype="float32")
+    return out
+
+
+def ddp_evaluate(argv) -> tuple:
+    """``cli.evaluate.main(argv)`` (TF32 off) and its K1 launches."""
+    from multitask_bonetumor_yolo_tpu_torch.cli import evaluate
+    from multitask_bonetumor_yolo_tpu_torch.ops.kernels import convnext_block as cnb
+
+    cnb.convnext_block.launches = 0
+    with no_tf32(), contextlib.redirect_stdout(io.StringIO()):
+        table = evaluate.main(argv)
+    torch.cuda.synchronize()
+    return table, cnb.convnext_block.launches
+
+
+def ddp_rank(work: str, train_argv: list, eval_argv: list) -> None:
+    """One rank of phase ``ddp``, in the group ``parallel.dist.spawn`` joined
+    (torchrun's route: the CLIs run as this rank): ``cli.train.main``, the
+    step checks on its rows, then ``cli.evaluate.main`` on the trained run's
+    last checkpoint; the results to ``<work>/rank<r>.pt``, rank 0's console
+    to ``<work>/train.log``."""
+    from multitask_bonetumor_yolo_tpu_torch.cli import train as cli_train
+    from multitask_bonetumor_yolo_tpu_torch.parallel import create_mesh, dist
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    out = {"device": str(dev)}
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as printed:
+        cli_train.main(train_argv)
+    torch.cuda.synchronize()
+    out["train_s"] = time.perf_counter() - t0
+    if dist.is_main():
+        (Path(work) / "train.log").write_text(printed.getvalue())
+    out.update(ddp_checks(dev, create_mesh(device=dev)))
+    out["evaluate"], out["eval_launches"] = ddp_evaluate(eval_argv + ["--checkpoint-path",
+                                                                      str(ddp_last(work))])
+    torch.save(out, Path(work) / f"rank{dist.rank()}.pt")
+
+
+def ddp_last(work) -> Path:
+    """The trained run's last checkpoint."""
+    ckpt = Path(work) / "run" / "checkpoints"
+    index = json.loads((ckpt / "index.json").read_text())
+    return ckpt / max(index, key=lambda n: index[n]["step"])
+
+
+def rel_norm(got, want) -> float:
+    return float((got.double() - want.double()).norm() / want.double().norm().clamp(min=1e-30))
+
+
+def trainer_split():
+    """The trainer phase's synthetic PNG split (written anew when phase
+    ``trainer`` did not run)."""
+    from multitask_bonetumor_yolo_tpu_torch.data import make_synthetic_btxrd
+
+    root = Path(__file__).resolve().parent / "build" / "trainer" / "data"
+    if not (root / "img_cls.csv").exists():
+        make_synthetic_btxrd(str(root), n=TRAINER_IMAGES, seed=SEED, min_size=320, max_size=960,
+                             rich=True)
+    return root
+
+
+def ddp_compare(tag, got, one):
+    """N ranks' run (rank 0's; every rank's launches) against one rank's
+    (``ddp_steps``): the relative gaps DDP_TOL[tag] names."""
+    import re
+
+    two, tol = got[0][tag], DDP_TOL[tag]
+    m2, m1 = two["metrics"], one["metrics"]
+    apart = {"loss": max(abs(a["loss_total"] / b["loss_total"] - 1) for a, b in zip(m2, m1)),
+             "grad_norm": max(abs(a["grad_norm"] / b["grad_norm"] - 1)
+                              for a, b in list(zip(m2, m1))[:1 if tag == "bf16" else None]),
+             "bn": rel_norm(two["bn"], one["bn"])}
+    noise = [bool(re.search(r"ConvBN_0\.Conv_0\.bias$", n)) for n in one["names"]]
+    sizes = one["sizes"]
+    strong = torch.ones(one["update"].numel(), dtype=torch.bool)
+    for g1 in one["applied"]:
+        strong &= torch.cat([
+            torch.zeros_like(g, dtype=torch.bool) if z
+            else (g.abs() >= DDP_STRONG * g.pow(2).mean().sqrt()) & (g != 0)
+            for g, z in zip(g1.split(sizes), noise)])
+    update = rel_norm(two["update"][strong], one["update"][strong])
+    top = max(float(g.abs().max()) for g in one["applied"])
+    noise_grad = max(float((a - b).abs().max()) / top
+                     for ga, gb in zip(two["applied"], one["applied"])
+                     for a, b, z in zip(ga.split(sizes), gb.split(sizes), noise) if z)
+    if "update" in tol:
+        apart["update"], apart["noise_grad"] = update, noise_grad
+    want_launches = [(0, 15, 15)] * DDP_STEPS
+    bad = [r for r, g in enumerate(got) if g[tag]["launches"] != want_launches]
+    skipped = [m["step_skipped"] for m in m1 + m2]
+    same = all(torch.equal(g[tag]["update"], two["update"]) and torch.equal(g[tag]["bn"], two["bn"])
+               for g in got)
+    if any(apart[k] > tol[k] for k in apart) or bad or any(skipped) or not same:
+        raise RuntimeError(f"[ddp] {tag}, {len(got)} ranks against 1: apart {apart}, tolerances "
+                           f"{tol}; launches of ranks {bad} {[g[tag]['launches'] for g in got]}, "
+                           f"want {want_launches}; skipped {skipped}; ranks equal {same}")
+    return apart, update, noise_grad, int(strong.sum()), strong.numel(), sum(noise)
+
+
+def phase_ddp(dev, card, trainer_rates):
+    """Data parallelism on the card(s): N ranks (``ddp_route``) against 1.
+
+    N ranks spawned by ``parallel.dist.spawn`` (each joins the group and
+    runs the CLIs as its rank, torchrun's route) each run
+    ``cli.train.main`` for one epoch over the trainer phase's split
+    (per-rank batch TRAIN_BATCH / N), ``ddp_checks`` on their rows of a
+    global batch of DDP_GLOBAL and ``cli.evaluate.main`` on the trained
+    checkpoint (fp32, split all); this process runs ``ddp_checks`` and
+    ``cli.evaluate --nproc 1`` on one rank, and the bf16 steps once more
+    (one rank's own spread). Checks: K1's saving form and K2 15 launches
+    per step on every rank, K1 15 per evaluation forward on every rank;
+    the gaps of DDP_TOL; the ranks' states equal bit for bit; the
+    evaluation's every key within DDP_TOL["evaluate"] of max(1, |value|).
+    Prints per rank the step's, the upload's and the gradient
+    all-reduce's times, and epoch 0's rate beside the trainer phase's one
+    rank. Returns the launches per rank (K1 per evaluation forward, K1
+    saving and K2 per train step)."""
+    import numpy as np
+
+    from multitask_bonetumor_yolo_tpu_torch.parallel import create_mesh, dist
+
+    ranks, backend = ddp_route()
+    note = "" if backend == "nccl" else (" (two ranks share one card over gloo, which stages "
+                                         "each collective through the host: not a multi-card "
+                                         "speed figure)")
+    log(f"[ddp] route: {ranks} ranks over {backend} on {torch.cuda.device_count()} card(s); "
+        f"{card}")
+    work = Path(__file__).resolve().parent / "build" / "ddp"
+    if work.exists():
+        import shutil
+
+        shutil.rmtree(work)
+    work.mkdir(parents=True)
+    root = trainer_split()
+    per_rank = TRAIN_BATCH // ranks
+    train = ["--root", str(root), "--run-dir", str(work / "run"), "--img-size", str(IMG),
+             "--batch-size", str(per_rank), "--image-ext", ".png", "--log-every", "1",
+             "--epochs", "1", *TRAINER_AUG]
+    ev = ["--root", str(root), "--split", "all", "--image-ext", ".png", "--dtype", "float32",
+          "--epochs", "1"]
+    t0 = time.perf_counter()
+    dist.spawn(ddp_rank, (str(work), train, ev + ["--run-dir", str(work / "evalN"),
+                                                   "--batch-size", str(per_rank)]),
+               ranks, str(work), device="cuda", backend=backend, deadline_s=900)
+    spawn_s = time.perf_counter() - t0
+    got = [torch.load(work / f"rank{r}.pt", weights_only=False) for r in range(ranks)]
+
+    # cli.train on N ranks
+    recs = [json.loads(line) for line in (work / "run" / "metrics.jsonl").open()]
+    steps = [r for r in recs if "train_step/loss_total" in r]
+    bad = [(r["step"], k, v) for r in recs for k, v in r.items()
+           if ("/loss_" in k or k.endswith("grad_norm")) and not np.isfinite(v)]
+    epochs = [{k.split("/")[1]: v for k, v in r.items() if k.startswith("train_epoch/")}
+              for r in recs if "train_epoch/epoch" in r]
+    last = ddp_last(work)
+    if len(epochs) != 1 or not steps or bad or not (last / "weights.npz").exists() \
+            or "[train] finished" not in (work / "train.log").read_text():
+        raise RuntimeError(f"[ddp-train] epochs {len(epochs)}, {len(steps)} step records, "
+                           f"non-finite {bad[:3]}, last checkpoint {last}")
+    e0 = epochs[0]
+    e0_train = e0["epoch_time_s"] - sum(e0.get(f"phase_{k}_s", 0.0)
+                                        for k in ("validate", "checkpoint", "viz"))
+    rate = len(steps) * TRAIN_BATCH / e0_train
+    log(f"[ddp-train] cli.train.main on {ranks} ranks ({backend}), one epoch of {len(steps)} "
+        f"steps of {TRAIN_BATCH} ({per_rank} per rank, {IMG}^2 bf16, HSV + flip) in "
+        f"{got[0]['train_s']:.3f} s on rank 0; epoch 0 trains at {rate:.2f} img/s (host clock, "
+        f"the epoch less validation, checkpoint and overlays: {e0_train:.3f} s, of which "
+        f"waiting for batches {e0['phase_data_s']:.3f} s and issuing the steps "
+        f"{e0['phase_train_step_s']:.3f} s: the first steps load the kernels and plan cuDNN) "
+        f"beside the trainer phase's 1 rank at "
+        + (f"{trainer_rates[0]:.2f} img/s in its epoch 0 ({trainer_rates[1]:.2f} in its epoch 1)"
+           if trainer_rates else "(phase trainer not run)")
+        + f"{note}; {last.name}; {card}")
+
+    # the step checks: N ranks against 1
+    one = ddp_checks(dev, create_mesh(device=dev, world_size=1, rank=0))
+    again = ddp_steps(dev, create_mesh(device=dev, world_size=1, rank=0))
+    for tag in ("bf16", "fp32"):
+        apart, update, noise_grad, n_strong, n_all, n_noise = ddp_compare(tag, got, one[tag])
+        for i, (a, b) in enumerate(zip(got[0][tag]["metrics"], one[tag]["metrics"])):
+            log(f"[ddp] {tag} step {i + 1}: loss {a['loss_total']:.6f} on {ranks} ranks, "
+                f"{b['loss_total']:.6f} on 1; grad_norm {a['grad_norm']:.6f} / "
+                f"{b['grad_norm']:.6f}; num_pos {a['num_pos']:.0f} / {b['num_pos']:.0f}; "
+                f"launches (K1, K1 saving, K2) per rank {[g[tag]['launches'][i] for g in got]}")
+        floor = ""
+        if tag == "bf16":
+            floor = (f"; one rank run twice parts by {rel_norm(again['update'], one[tag]['update']):.3e} "
+                     f"in p2 - p0 over all elements ({ranks} ranks against 1: "
+                     f"{rel_norm(got[0][tag]['update'], one[tag]['update']):.3e}) and "
+                     f"{rel_norm(again['applied'][0], one[tag]['applied'][0]):.3e} in step 1's "
+                     f"gradient ({rel_norm(got[0][tag]['applied'][0], one[tag]['applied'][0]):.3e})")
+        log(f"[ddp] {tag}, {ranks} ranks against 1 at the global batch {DDP_GLOBAL} ({IMG}^2, "
+            f"full-width v1, HSV + flip, pallas and block_bwd auto), after {DDP_STEPS} steps: "
+            + ", ".join(f"{k} {v:.3e}" for k, v in apart.items())
+            + f" (held: tolerances {DDP_TOL[tag]}); p2 - p0 {update:.3e} on the {n_strong} of "
+            f"{n_all} elements whose gradient is at least {DDP_STRONG} x its tensor's RMS at "
+            f"both steps, the {n_noise} conv biases in front of a train-mode BN by their "
+            f"gradients {noise_grad:.3e} of the largest gradient element{floor}; the ranks' "
+            f"states equal bit for bit")
+
+    # cli.evaluate: N ranks against 1
+    want_eval, one_launches = ddp_evaluate(ev + ["--checkpoint-path", str(last), "--run-dir",
+                                                 str(work / "eval1"), "--batch-size",
+                                                 str(TRAIN_BATCH), "--nproc", "1"])
+    keys = sorted(want_eval)
+    two_eval = got[0]["evaluate"]
+    eval_apart = {k: abs(two_eval[k] - want_eval[k]) / max(1.0, abs(want_eval[k])) for k in keys}
+    n_images = next(json.loads(line) for line in (work / "eval1" / "metrics.jsonl").open()
+                    )["test_pass/images"]
+    forwards = -(-int(n_images) // TRAIN_BATCH)
+    if sorted(two_eval) != keys or max(eval_apart.values()) > DDP_TOL["evaluate"] \
+            or any(g["eval_launches"] != 15 * forwards for g in got) \
+            or one_launches != 15 * forwards \
+            or any(g["evaluate"] != two_eval for g in got):
+        raise RuntimeError(f"[ddp-evaluate] {ranks} ranks against 1: apart "
+                           f"{ {k: v for k, v in eval_apart.items() if v > DDP_TOL['evaluate']} }, "
+                           f"K1 launches per rank {[g['eval_launches'] for g in got]} and on one "
+                           f"{one_launches} (want {15 * forwards})")
+    worst = max(eval_apart, key=eval_apart.get)
+    log(f"[ddp-evaluate] cli.evaluate on {last.name} over {int(n_images)} images (fp32, TF32 "
+        f"off, global batch {TRAIN_BATCH}): {ranks} ranks against 1, every one of the "
+        f"{len(keys)} keys within {eval_apart[worst]:.3e} ({worst}; tolerance "
+        f"{DDP_TOL['evaluate']} of max(1, |value|)); loss_total {two_eval['loss_total']:.6f} / "
+        f"{want_eval['loss_total']:.6f}, seg_dice {two_eval['seg_dice']:.6f} / "
+        f"{want_eval['seg_dice']:.6f}, map_iou50_map {two_eval['map_iou50_map']:.6f} / "
+        f"{want_eval['map_iou50_map']:.6f}; K1 launches per rank "
+        f"{[g['eval_launches'] for g in got]}, {one_launches} on one ({forwards} forwards)")
+    for r, g in enumerate(got):
+        b = g["bf16"]
+        log(f"[ddp-time] rank {r} on {g['device']}: step {b['step_ms']:.3f} ms (bf16, CUDA "
+            f"events, median of {DDP_TIMED}, {DDP_GLOBAL // ranks} rows); upload "
+            f"{b['upload_ms']:.3f} ms (shard_batch of its rows: {IMG}^2 uint8 images and masks, "
+            f"pinned, non-blocking; median of 5); gradient all-reduce {b['allreduce_ms']:.3f} ms "
+            f"for {b['allreduce_bytes']} bytes ({b['allreduce_bytes'] // 4} fp32 parameters; "
+            f"host clock, median of {DDP_ALLREDUCE_ITERS}){note}; {card}")
+    b = one["bf16"]
+    log(f"[ddp-time] 1 rank: step {b['step_ms']:.3f} ms ({DDP_GLOBAL} rows), upload "
+        f"{b['upload_ms']:.3f} ms; the spawned ranks' run {spawn_s:.3f} s; {card}")
+    return (got[0]["eval_launches"] // forwards, *got[0]["bf16"]["launches"][0][1:])
 
 
 RAW_IMAGES = 24  # make_synthetic_raw's split: the JAX function's 300-600 px JPEGs
@@ -1447,7 +1856,7 @@ def phase_raw(cnb, dev, gen, card):
         metrics = evaluate.main([
             "--checkpoint-path", str(step_dir), "--root", str(ready), "--split", "all",
             "--batch-size", str(BATCH), "--image-ext", ".jpeg", "--run-dir", str(work / "eval"),
-            "--log-examples"])
+            "--log-examples", "--nproc", "1"])
     torch.cuda.synchronize()
     eval_s = time.perf_counter() - t0
     eval_launches = [c.launches for c in counts]
@@ -2560,7 +2969,7 @@ def timed_build(name):
     return path, report, time.perf_counter() - t0
 
 
-PHASES = ("kernel", "model", "infer-cli", "eval", "trainer", "raw", "k2", "k2-split", "train",
+PHASES = ("kernel", "model", "infer-cli", "eval", "trainer", "ddp", "raw", "k2", "k2-split", "train",
           "k3", "k4", "k4-split", "fwdbwd", "lab")
 
 
@@ -2632,6 +3041,7 @@ def main(argv=None) -> int:
         ("infer-cli", infer_cli),
         ("eval", eval_phase),
         ("trainer", lambda: phase_trainer(cnb, k2, dev, card)),
+        ("ddp", lambda: phase_ddp(dev, card, r["trainer"][1] if "trainer" in r else None)),
         ("raw", lambda: phase_raw(cnb, dev, gen, card)),
         ("k2", lambda: phase_training_kernels(cnb, k2, dev, gen)),
         ("k2-split", lambda: phase_k2_split(cnb, k2, dev, gen)),
@@ -2656,7 +3066,8 @@ def main(argv=None) -> int:
     max_err, per_stage, k_ms, p_ms = r["kernel"]
     launches = r["model"][0]
     eval_launches = r["eval"]
-    trainer_launches = r["trainer"]
+    trainer_launches, _ = r["trainer"]
+    ddp_launches = r["ddp"]
     k6_entries, _ = r["raw"]
     err_sav, err_dx, err_scale, bwd_stages, tot = r["k2"]
     k2_split = r["k2-split"]
@@ -2674,7 +3085,7 @@ def main(argv=None) -> int:
          "source": "multitask_bonetumor_yolo_tpu_torch/csrc/convnext_block.cu",
          "replaces": "multitask_bonetumor_yolo_tpu/ops/pallas/convnext_block.py:165",
          "launches": launches, "eval_launches": eval_launches,
-         "trainer_launches": trainer_launches[0],
+         "trainer_launches": trainer_launches[0], "ddp_launches_per_rank": ddp_launches[0],
          "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms,
          "first_design_ms": sum(d * row["first_design_ms"]
                                 for (_, _, d), row in zip(STAGES, per_stage)),
@@ -2683,6 +3094,7 @@ def main(argv=None) -> int:
          "source": "multitask_bonetumor_yolo_tpu_torch/csrc/convnext_block.cu",
          "replaces": "multitask_bonetumor_yolo_tpu/ops/pallas/convnext_block.py:563",
          "launches": n_saving, "trainer_launches": trainer_launches[1],
+         "ddp_launches_per_rank": ddp_launches[1],
          "max_abs_err": err_sav, "ms": tot["sav"],
          "plain_ms": tot["sav_plain"], "first_design_ms": tot["sav_v0"],
          "bound_ms": tot["sav_bound"][0], "bound_by": tot["sav_bound"][1],
@@ -2695,6 +3107,7 @@ def main(argv=None) -> int:
          "source": "multitask_bonetumor_yolo_tpu_torch/csrc/convnext_block_bwd.cu",
          "replaces": "multitask_bonetumor_yolo_tpu/ops/pallas/convnext_block_bwd.py:312",
          "launches": n_bwd, "trainer_launches": trainer_launches[2],
+         "ddp_launches_per_rank": ddp_launches[2],
          "max_abs_err": err_dx, "grad_err_of_scale": err_scale,
          "ms": tot["k2"], "plain_ms": tot["plain"], "bound_ms": tot["bound"][0],
          "bound_by": tot["bound"][1], "eager_bwd_ms": tot["eager"],

@@ -26,9 +26,13 @@ Where it differs from the JAX CLI:
   files: the port reads PNG and JPEG with its own codecs on every machine
   (a JPEG decoded on ``--device``), and other formats only where cv2 or PIL
   is installed;
-* ``--device`` (default ``cuda``, the first card) raises without a card
-  unless it is given ``cpu``; there is no mesh, and ``--batch-size`` is the
-  whole batch.
+* ``--device`` (default ``cuda``) raises without a card unless it is given
+  ``cpu``. As in the JAX CLI, ``--batch-size`` is per rank and every
+  visible card takes part (``--nproc`` and torchrun as in ``cli.train``): each rank reads and evaluates its block of every
+  global batch, with BN statistics and loss normalisers of the global
+  batch, and rank 0 gathers the outputs, computes the table, writes the run
+  dir's records and prints; ``main`` returns the table on every rank of
+  the process (``None`` in a process that spawned the ranks).
 """
 
 from __future__ import annotations
@@ -40,11 +44,13 @@ from pathlib import Path
 
 import torch
 
-from ..data.dataset import BTXRD, BTXRDLoader, DataConfig, DeviceEvalCache, to_device
+from ..data.dataset import BTXRD, BTXRDLoader, DataConfig, DeviceEvalCache
 from ..losses import LossConfig
 from ..models import ModelConfig
+from ..parallel import create_mesh, dist, replicate, shard_batch
 from ..train import CheckpointManager, TrainConfig, create_train_state, make_eval_step
 from ..train.loop import ExperimentConfig, ValidationMetrics
+from .train import add_rank_flags
 from ..utils.logging import RunLogger
 
 # flags whose value comes from the TRAINED config when the user does not
@@ -115,10 +121,14 @@ def _section(saved, cls, overrides):
     return cls(**{**base, **overrides})
 
 
-def evaluate(args) -> dict:
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
+def evaluate(args) -> dict | None:
+    if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass --device cpu to run on the CPU")
+    return dist.run_ranks(evaluate_rank, (args,), args.device, args.nproc, args.run_dir)
+
+
+def evaluate_rank(args, device: torch.device) -> dict:
+    """The evaluation on this rank (``device`` its own)."""
     resolve_config(args)
     model_cfg = _section(args._run_model_cfg, ModelConfig, dict(
         nc_det=args.nc_det, nc_img=args.num_img_classes, img_size=args.img_size,
@@ -131,20 +141,30 @@ def evaluate(args) -> dict:
                           max_boxes=args.max_boxes, image_ext=args.image_ext)
     train_cfg = TrainConfig(eval_top_k=max(args.map_thresholds))
 
+    mesh = create_mesh(device=device)
+    # batch_size is per rank (trainer semantics); each rank's loader reads
+    # its block of every global batch
+    global_batch = args.batch_size * mesh.shape["data"]
+    shard = (mesh.data_index, mesh.shape["data"])
+    main_rank = dist.is_main()
+    say = print if main_rank else (lambda *a, **k: None)
+
     state = create_train_state(model_cfg, train_cfg, device=device)
     ckpt = CheckpointManager(str(Path(args.checkpoint_path).parent))
     state = ckpt.restore(state, args.checkpoint_path)
-    print(f"[evaluate] restored step {state.step} from {args.checkpoint_path} on {device}")
+    replicate([*state.model.parameters(), *state.model.buffers()], mesh)
+    say(f"[evaluate] restored step {state.step} from {args.checkpoint_path} on {device}; "
+        f"{mesh.shape['data']} rank(s)")
 
     eval_step = make_eval_step(model_cfg, loss_cfg, train_cfg)
     ds = BTXRD(data_cfg, args.split, device=device)
-    print(f"[evaluate] {len(ds)} items in split '{args.split}'")
+    say(f"[evaluate] {len(ds)} items in split '{args.split}'")
 
     exp = ExperimentConfig(model=model_cfg, data=data_cfg, loss=loss_cfg, train=train_cfg,
                            run_dir=args.run_dir)
-    logger = RunLogger(args.run_dir, args.wandb_project)
-    cache = DeviceEvalCache(lambda: BTXRDLoader(ds, args.batch_size, pad_last=True),
-                            lambda b: to_device(b, device))
+    logger = RunLogger(args.run_dir, args.wandb_project, enabled=main_rank)
+    cache = DeviceEvalCache(lambda: BTXRDLoader(ds, global_batch, pad_last=True, shard=shard),
+                            lambda b: shard_batch(b, mesh, local=True))
     out = {}
     try:
         for pass_i in range(args.epochs):
@@ -155,7 +175,7 @@ def evaluate(args) -> dict:
             for batch, dev_batch in cache:
                 metrics, aux = eval_step(state, dev_batch)
                 vm.update(metrics, aux, batch)
-                if first and args.log_examples and pass_i == 0:
+                if first and args.log_examples and pass_i == 0 and main_rank:
                     host = {k: aux[k].float().cpu().numpy() for k in
                             ("seg_prob", "nms_boxes", "nms_scores", "nms_labels", "nms_valid")}
                     imgs = batch["image"].astype("float32") / 255.0
@@ -168,11 +188,11 @@ def evaluate(args) -> dict:
             secs = time.perf_counter() - t0
             logger.log({**out, "pass": pass_i, "seconds": secs, "images": len(ds)}, state.step,
                        prefix="test_pass")
-            print(f"[evaluate] pass {pass_i + 1}: {len(ds)} images in {secs:.3f} s")
+            say(f"[evaluate] pass {pass_i + 1}: {len(ds)} images in {secs:.3f} s")
         logger.log(out, state.step, prefix="test")
     finally:
         logger.close()
-    print(json.dumps({k: round(v, 5) for k, v in sorted(out.items())}, indent=2))
+    say(json.dumps({k: round(v, 5) for k, v in sorted(out.items())}, indent=2))
     return out
 
 
@@ -217,6 +237,7 @@ def make_parser():
     ap.add_argument("--wandb-project", default=None)
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (default cuda; 'cpu' to run without a card)")
+    add_rank_flags(ap)
     return ap
 
 

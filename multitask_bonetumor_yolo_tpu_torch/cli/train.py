@@ -7,9 +7,13 @@ The flags and defaults are the JAX CLI's (the reference's knobs: batch 4,
 lr 1e-4, 500 epochs, IoU match 0.5, loss weights 1 / 7.5 / 1.5 / 0.5 / 1,
 label smoothing 0.1, early stop 50, mAP50-95 every 5 epochs), plus:
 
-* ``--device`` (default ``cuda``, the first card): without a card it raises
-  unless given ``cpu``. There is no mesh: ``--batch-size`` is the whole
-  batch of one step;
+* ``--device`` (default ``cuda``): without a card it raises unless given
+  ``cpu``. As in the JAX CLI, ``--batch-size`` is per rank and every
+  visible card takes part: one rank per card (NCCL), the global batch
+  ``--batch-size`` times the ranks. Under torchrun the CLI joins torchrun's
+  group; otherwise ``--nproc`` (default every visible card, 1 on the CPU)
+  ranks are spawned, with a ``file://`` store in the run directory.
+  ``--device cpu --nproc 2`` runs two gloo ranks on the CPU;
 * ``--image-ext`` (default ``.jpeg``, as ``DataConfig``): the image files
   under ``root/images``. PNG and JPEG are read by the port's own codecs on
   every machine (a JPEG decoded on ``--device``), other formats only where
@@ -32,6 +36,7 @@ from ..data.dataset import DataConfig
 from ..data.preprocess import AugmentConfig
 from ..losses import LossConfig
 from ..models import ModelConfig
+from ..parallel import dist
 from ..train.loop import ExperimentConfig, Trainer
 from ..train.state import TrainConfig
 
@@ -156,22 +161,40 @@ def make_parser() -> argparse.ArgumentParser:
                     "machine)")
     ap.add_argument("--device", default="cuda",
                     help="torch device to train on (default cuda; 'cpu' to run without a card)")
+    add_rank_flags(ap)
     return ap
 
 
-def main(argv=None) -> Trainer:
-    args = make_parser().parse_args(argv)
-    if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass --device cpu to train on the CPU")
+def add_rank_flags(ap: argparse.ArgumentParser) -> None:
+    ap.add_argument("--nproc", type=int, default=None,
+                    help="ranks to spawn, one per card over NCCL, gloo on the CPU (default: "
+                    "every visible card on cuda, 1 on the CPU); ignored under torchrun, "
+                    "whose group is joined")
+
+
+def run(args, device: torch.device) -> Trainer:
+    """Train on this rank (``device`` its own)."""
     cfg = build_config(args)
     trainer = Trainer(cfg, resume=args.resume, convnext_ckpt=args.convnext_ckpt,
                       detect_ckpt=args.detect_ckpt, segment_ckpt=args.segment_ckpt,
-                      device=args.device)
-    print(f"[train] {len(trainer.train_ds)} train / {len(trainer.val_ds)} val items, "
-          f"{trainer.train_cfg.steps_per_epoch} steps/epoch, run dir {cfg.run_dir}")
+                      device=device)
+    if trainer.is_main:
+        print(f"[train] {len(trainer.train_ds)} train / {len(trainer.val_ds)} val items, "
+              f"{trainer.train_cfg.steps_per_epoch} steps/epoch of {trainer.global_batch} on "
+              f"{trainer.mesh.shape['data']} rank(s), run dir {cfg.run_dir}")
     trainer.fit()
-    print("[train] finished")
+    if trainer.is_main:
+        print("[train] finished")
     return trainer
+
+
+def main(argv=None) -> Trainer | None:
+    """Returns the trainer of this process's rank, or ``None`` in a process
+    that spawned the ranks."""
+    args = make_parser().parse_args(argv)
+    if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass --device cpu to train on the CPU")
+    return dist.run_ranks(run, (args,), args.device, args.nproc, args.run_dir)
 
 
 if __name__ == "__main__":

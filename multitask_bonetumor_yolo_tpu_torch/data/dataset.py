@@ -29,8 +29,9 @@ Host batches are fixed-shape numpy dicts::
   id        int32  [B]
   sample_valid bool [B]          (the loader's; False on pad_last replicas)
 
-:func:`to_device` moves one to the card; :class:`DeviceEvalCache` keeps the
-device batches of an evaluation split for the passes after the first.
+:func:`to_device` (``parallel/pack.py::upload``) moves one to the card;
+:class:`DeviceEvalCache` keeps the device batches of an evaluation split
+for the passes after the first.
 """
 
 from __future__ import annotations
@@ -41,12 +42,12 @@ import queue
 import threading
 import warnings
 from pathlib import Path
-from typing import Callable, Dict, Iterator, List, Optional
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
-import torch
 
 from ..core.letterbox import PAD_VALUE, letterbox_geometry, scale_boxes_to_letterbox
+from ..parallel.pack import upload as to_device  # noqa: F401 (the host batch's upload)
 from .imageio import read_image, read_mask, resize_bilinear_u8, resize_nearest_u8
 
 
@@ -174,16 +175,23 @@ class BTXRDLoader:
     """Fixed-shape batch iterator: ``shuffle`` (a ``RandomState(seed)`` that
     advances with every pass), ``drop_last``, and ``pad_last``, which fills a
     short last batch with replicas of its last sample; ``sample_valid`` marks
-    the real samples."""
+    the real samples.
+
+    ``shard=(i, n)``: the loader of rank i of n on the data axis. It builds
+    the same global order, batches and padding as the loader of one rank
+    (in indices), and reads and yields only block i of each batch's rows,
+    so every rank decodes only its own images. A padded row is the global
+    batch's last real item, wherever that item's row falls."""
 
     def __init__(self, dataset: BTXRD, batch_size: Optional[int] = None,
                  shuffle: bool = False, drop_last: bool = False, seed: int = 0,
-                 pad_last: bool = False):
+                 pad_last: bool = False, shard: Tuple[int, int] = (0, 1)):
         self.ds = dataset
         self.batch_size = batch_size or dataset.cfg.batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.pad_last = pad_last
+        self.shard = shard
         self._rng = np.random.RandomState(seed)
 
     def __len__(self) -> int:
@@ -197,20 +205,22 @@ class BTXRDLoader:
         if self.shuffle:
             self._rng.shuffle(order)
         bs = self.batch_size
+        index, n_shards = self.shard
         stop = len(order) - (len(order) % bs) if self.drop_last else len(order)
         for start in range(0, stop, bs):
-            items = [self.ds[int(i)] for i in order[start : start + bs]]
-            nreal = len(items)
-            if self.pad_last and nreal < bs:
-                items = items + [items[-1]] * (bs - nreal)
+            idx = order[start : start + bs]
+            nreal = len(idx)
+            rows = bs if self.pad_last else nreal
+            if rows % n_shards:
+                raise ValueError(f"a batch of {rows} rows not divisible by data-axis size "
+                                 f"{n_shards}; use a pad_last loader")
+            mine = range(index * rows // n_shards, (index + 1) * rows // n_shards)
+            picks = [int(idx[min(j, nreal - 1)]) for j in mine]
+            read = {i: self.ds[i] for i in dict.fromkeys(picks)}  # a replica is read once
+            items = [read[i] for i in picks]
             batch = {k: np.stack([it[k] for it in items]) for k in items[0].keys()}
-            batch["sample_valid"] = np.arange(len(items)) < nreal
+            batch["sample_valid"] = np.asarray(mine) < nreal
             yield batch
-
-
-def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
-    """A host batch as tensors on ``device`` (one copy per array)."""
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in batch.items()}
 
 
 class Prefetcher:

@@ -30,6 +30,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..ops.resize import resize_bilinear, resize_nearest
+from ..parallel import dist
 
 
 @dataclasses.dataclass(frozen=True)
@@ -199,14 +200,18 @@ def augment_draws(gen: torch.Generator, cfg: AugmentConfig, b: int) -> Dict[str,
 
 
 def augment_apply(batch: Dict[str, torch.Tensor], cfg: AugmentConfig,
-                  draws: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+                  draws: Dict[str, torch.Tensor],
+                  head: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
     """The augmentation stage for the given draws (:func:`augment_draws`'
     keys): normalise, then the mosaic, HSV and flip that ``cfg`` enables.
 
     With mosaic enabled the output batch is B // 4 for the whole step. Group
-    j keeps ``img_cls[j]``, ``id[j]`` and ``sample_valid[j]`` (the first
-    B // 4 of the batch, as the JAX function's code does: image j's label,
-    where its docstring says the group's first source, image 4j)."""
+    j keeps ``img_cls[j]``, ``id[j]`` and ``sample_valid[j]``, and where its
+    gate is off image j itself (the first B // 4 of the batch, as the JAX
+    function's code does: image j's label, where its docstring says the
+    group's first source, image 4j). ``head``: those B // 4 rows when they
+    are not the first of ``batch`` (a rank's share of a global batch,
+    :func:`augment_batch`)."""
     images = normalize(batch["image"])
     if not cfg.enabled:
         return {**batch, "image": images}
@@ -215,11 +220,14 @@ def augment_apply(batch: Dict[str, torch.Tensor], cfg: AugmentConfig,
     if cfg.mosaic_prob > 0:
         m_img, m_boxes, m_valid, m_mask = mosaic4(images, boxes, valid, masks)
         use, g = draws["gate"], m_img.shape[0]
-        images = torch.where(use[:, None, None, None], m_img, images[:g])
-        boxes = torch.where(use[:, None, None], m_boxes, boxes[:g])
-        valid = torch.where(use[:, None], m_valid, valid[:g])
-        masks = torch.where(use[:, None, None, None], m_mask, masks[:g])
-        img_cls = img_cls[:g]
+        if head is None:
+            head = {k: v[:g] for k, v in batch.items()}
+        images = torch.where(use[:, None, None, None], m_img, normalize(head["image"]))
+        boxes = torch.where(use[:, None, None], m_boxes, head["boxes"])
+        valid = torch.where(use[:, None], m_valid, head["box_valid"])
+        masks = torch.where(use[:, None, None, None], m_mask, head["mask"])
+        img_cls = head["img_cls"]
+        batch = head
     if cfg.hsv:
         images = hsv_apply(images, draws["hsv"], (cfg.hsv_h, cfg.hsv_s, cfg.hsv_v))
     if cfg.hflip_prob > 0:
@@ -236,6 +244,29 @@ def augment_batch(batch: Dict[str, torch.Tensor], gen: Optional[torch.Generator]
                   cfg: AugmentConfig) -> Dict[str, torch.Tensor]:
     """The on-device stage: normalise, plus the augmentations ``cfg``
     enables, their draws taken from ``gen`` (a generator on the batch's
-    device; unused when nothing is enabled)."""
-    draws = augment_draws(gen, cfg, batch["image"].shape[0]) if cfg.enabled else {}
-    return augment_apply(batch, cfg, draws)
+    device; unused when nothing is enabled).
+
+    On N ranks (``parallel/dist.py``) ``batch`` is this rank's block of b
+    rows of the global batch, and ``gen`` is seeded alike on every rank:
+    each rank draws for the global batch and applies its own block of the
+    draws. A mosaic group (4 consecutive images) then stays inside one rank,
+    which needs b % 4 == 0. The global batch's first B // 4 rows, which the
+    mosaic keeps beside its groups, are gathered from the ranks that hold
+    them."""
+    if not cfg.enabled:
+        return augment_apply(batch, cfg, {})
+    n, b = dist.world_size(), batch["image"].shape[0]
+    draws = augment_draws(gen, cfg, b * n)
+    if n == 1:
+        return augment_apply(batch, cfg, draws)
+    if cfg.mosaic_prob > 0 and b % 4:
+        raise ValueError(f"mosaic on {n} ranks needs a per-rank batch that is a multiple of 4 "
+                         f"(its groups of 4 must not straddle ranks), got {b}")
+    r, out_b = dist.rank(), (b // 4 if cfg.mosaic_prob > 0 else b)
+    draws = {k: v[r * len(v) // n:(r + 1) * len(v) // n] for k, v in draws.items()}
+    head = None
+    if cfg.mosaic_prob > 0:
+        g = b * n // 4  # the global head; ranks past min(b, g) rows hold none of it
+        head = {k: dist.gather_rows(v[:min(b, g)])[:g][r * out_b:(r + 1) * out_b]
+                for k, v in batch.items()}
+    return augment_apply(batch, cfg, draws, head)

@@ -16,6 +16,14 @@ GT comes padded: ``boxes`` [B, M, 5] = (cls, xc, yc, w, h) normalised to
 [0, 1], ``box_valid`` [B, M]; ``mask`` [B, S, S, 1]; ``img_cls`` [B].
 Nothing here waits for the device: every data-dependent choice is a
 ``torch.where``.
+
+With a data group of more than one rank joined (``parallel/dist.py``) each
+rank's terms are its rows' share of the global loss: the normalisers
+(positives, the assigner's target sum, the batch-size fall-back, the
+counts behind the two means) are those of the global batch, as in the JAX
+package, where the batch is one array sharded over the mesh. They are
+constants to autograd, so they travel in one plain all-reduce. Summed over
+the ranks, the terms are the global loss.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ import torch.nn.functional as F
 from ..core.anchors import make_anchors
 from ..core.boxes import box_cxcywh_to_xyxy, box_iou_matrix, dist2bbox
 from ..core.dfl import dfl_decode, dfl_targets
+from ..parallel import dist
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,7 +95,7 @@ def _assign_tal(iou, det_cls_logits, gt_cls, gt_valid, gt_xyxy, anchor_abs, cfg)
     """Task-aligned assignment on detached inputs (JAX ``_assign_tal``).
 
     Returns (positive [B,A] bool, best_gt [B,A] int64, norm_t [B,A] fp32,
-    avg_iou scalar)."""
+    iou_at [B,A] fp32: each anchor's IoU with its assigned GT)."""
     b, a, m = iou.shape
     iou_pos = iou.clamp(min=0.0)
     scores = torch.sigmoid(det_cls_logits.float())  # [B, A, nc]
@@ -112,10 +121,13 @@ def _assign_tal(iou, det_cls_logits, gt_cls, gt_valid, gt_xyxy, anchor_abs, cfg)
     norm_t = torch.where(positive, t_at * gt_scale.gather(1, best_gt), 0.0)
 
     iou_at = iou_pos.gather(-1, best_gt[..., None])[..., 0]
-    pos_f = positive.float()
-    npos = pos_f.sum()
-    avg_iou = torch.where(npos > 0, (iou_at * pos_f).sum() / npos.clamp(min=1.0), 0.0)
-    return positive, best_gt, norm_t, avg_iou
+    return positive, best_gt, norm_t, iou_at
+
+
+def _mean(x: torch.Tensor, n_data: int) -> torch.Tensor:
+    """The mean of ``x`` over the global batch: this rank's sum over every
+    rank's count (each rank holds as many rows)."""
+    return x.mean() if n_data == 1 else x.sum() / (x.numel() * n_data)
 
 
 def multitask_loss(
@@ -126,9 +138,11 @@ def multitask_loss(
 ) -> LossOutput:
     """``outputs``: the model's train-mode dict; ``batch``: the padded GT dict."""
     f32 = torch.float32
+    n_data = dist.world_size()
     cls_logits = outputs["cls_logits"].float()
-    loss_img_cls = _softmax_ce(cls_logits, batch["img_cls"]).mean()
-    loss_seg = _bce_with_logits(outputs["seg_logits"].float(), batch["mask"].to(f32)).mean()
+    loss_img_cls = _mean(_softmax_ce(cls_logits, batch["img_cls"]), n_data)
+    loss_seg = _mean(_bce_with_logits(outputs["seg_logits"].float(), batch["mask"].to(f32)),
+                     n_data)
 
     dist_logits, det_cls_logits = flatten_det_levels(outputs["det_feats"], cfg.reg_max)
     anchors, strides = make_anchors(cfg.img_size, cfg.strides, device=dist_logits.device)
@@ -142,17 +156,16 @@ def multitask_loss(
 
     iou = box_iou_matrix(pred_xyxy, gt_xyxy)  # [B, A, M]
     iou = torch.where(gt_valid[:, None, :], iou, -1.0)
-    batch_size = pred_xyxy.shape[0]
+    batch_size = pred_xyxy.shape[0] * n_data
 
     if cfg.assigner == "reference":
         pred_max_iou, best_gt = iou.max(-1)  # first index on ties, as jnp.argmax
         positive = pred_max_iou > cfg.iou_match_thresh
         pos_f = positive.float()
-        num_pos = pos_f.sum()
+        num_pos, iou_sum = dist.sums(pos_f.sum(), (pred_max_iou * pos_f).sum())
         avg_factor = torch.where(num_pos > 0, num_pos, float(batch_size))
         loss_box_iou = ((1.0 - pred_max_iou) * pos_f).sum() / avg_factor
-        avg_iou = torch.where(num_pos > 0, (pred_max_iou * pos_f).sum() / num_pos.clamp(min=1.0),
-                              0.0)
+        avg_iou = torch.where(num_pos > 0, iou_sum / num_pos.clamp(min=1.0), 0.0)
         matched_gt_cls = gt_cls.gather(1, best_gt)
         one_hot = F.one_hot(matched_gt_cls, cfg.nc_det).to(f32)
         if train and cfg.det_label_smoothing > 0.0 and cfg.nc_det > 1:
@@ -165,15 +178,17 @@ def multitask_loss(
         box_w = pos_f
         dfl_norm = avg_factor
     elif cfg.assigner == "tal":
-        positive, best_gt, norm_t, avg_iou = _assign_tal(
+        positive, best_gt, norm_t, iou_at = _assign_tal(
             iou.detach(), det_cls_logits.detach(), gt_cls, gt_valid, gt_xyxy, anchor_abs, cfg
         )
         pos_f = positive.float()
-        num_pos = pos_f.sum()
         matched_gt_cls = gt_cls.gather(1, best_gt)
         one_hot = F.one_hot(matched_gt_cls, cfg.nc_det).to(f32)
         targets = one_hot * (norm_t * pos_f)[..., None]
-        target_sum = targets.sum().clamp(min=1.0)
+        num_pos, iou_sum, target_sum = dist.sums(pos_f.sum(), (iou_at * pos_f).sum(),
+                                                 targets.sum())
+        avg_iou = torch.where(num_pos > 0, iou_sum / num_pos.clamp(min=1.0), 0.0)
+        target_sum = target_sum.clamp(min=1.0)
         loss_cls_det = _bce_with_logits(det_cls_logits, targets).sum() / target_sum
         iou_at_assigned = iou.gather(-1, best_gt[..., None])[..., 0]
         box_w = norm_t

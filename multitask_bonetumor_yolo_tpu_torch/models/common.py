@@ -18,6 +18,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel import dist
+
 # Flax-convention momenta (keep factors), as in the JAX package's models/common.py
 BN_MOMENTUM_BODY = 1.0 - 0.9997  # reference body blocks: running stats ~ the last batch
 BN_EPS_BODY = 4e-5
@@ -37,16 +39,41 @@ def batch_norm_fp32(x: torch.Tensor, bn: nn.BatchNorm2d, train: bool) -> torch.T
     """BatchNorm of ``x`` in fp32. ``train=False``: running statistics.
     ``train=True``: batch statistics over (N, H, W) with the biased variance,
     and the running statistics updated in place (not recorded by autograd):
-    running += (1 - m) * (batch - running), where ``bn.momentum`` = 1 - m."""
+    running += (1 - m) * (batch - running), where ``bn.momentum`` = 1 - m.
+    With a data group of more than one rank joined (``parallel/dist.py``)
+    the batch statistics are those of the global batch, as in the JAX
+    package, whose batch is one array sharded over the mesh."""
     xf = x.float()
     if not train:
         return F.batch_norm(xf, bn.running_mean, bn.running_var, bn.weight, bn.bias,
                             training=False, eps=bn.eps)
+    if dist.active():
+        return _global_batch_norm(xf, bn)
     with torch.no_grad():
         var, mean = torch.var_mean(xf, dim=(0, 2, 3), correction=0)
         bn.running_mean.lerp_(mean, bn.momentum)
         bn.running_var.lerp_(var, bn.momentum)
     return F.batch_norm(xf, None, None, bn.weight, bn.bias, training=True, eps=bn.eps)
+
+
+def _global_batch_norm(xf: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
+    """Train-mode BN of fp32 ``xf`` over the global batch. The count and
+    the per-channel sums travel in one all-reduce, then the centred sums of
+    squares in a second (as ``var_mean``: never E[x^2] - E[x]^2 in fp32).
+    Both all-reduces are differentiable, so each rank's backward carries
+    the other ranks' share of the statistics' gradient; every rank moves
+    its running statistics by the same global values."""
+    c = xf.shape[1]
+    s = dist.sum_(torch.cat([xf.sum((0, 2, 3)), xf.new_full((1,), xf.numel() // c)]))
+    count = s[c]
+    mean = s[:c] / count
+    xc = xf - mean[None, :, None, None]
+    var = dist.sum_((xc * xc).sum((0, 2, 3))) / count
+    with torch.no_grad():
+        bn.running_mean.lerp_(mean, bn.momentum)
+        bn.running_var.lerp_(var, bn.momentum)
+    scale = torch.rsqrt(var + bn.eps) * bn.weight
+    return xc * scale[None, :, None, None] + bn.bias[None, :, None, None]
 
 
 def conv2d(x: torch.Tensor, conv: nn.Conv2d, weight: torch.Tensor | None = None) -> torch.Tensor:

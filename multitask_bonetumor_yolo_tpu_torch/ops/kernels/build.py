@@ -105,6 +105,20 @@ def build(name: str) -> tuple[Path, str]:
     return out, proc.stdout + proc.stderr
 
 
+# the libraries the entry points' paths load (the kernel labs are tools')
+PATH_LIBRARIES = ("convnext_block", "convnext_block_bwd", "dwconv", "jpeg")
+
+
+def build_all() -> None:
+    """Build the missing :data:`PATH_LIBRARIES` at once, one nvcc each. On N
+    ranks, rank 0 calls this before the others load a library
+    (``parallel/dist.py``), so that one process compiles each."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(len(PATH_LIBRARIES)) as ex:
+        list(ex.map(build, PATH_LIBRARIES))
+
+
 @functools.lru_cache(maxsize=None)
 def load_library(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``; one handle per process."""

@@ -9,13 +9,18 @@ the device as the eval step returns it, and moves it all to the host in one
 copy when :meth:`ValidationMetrics.compute` runs: one wait for the device per
 pass, where reading each batch would wait once per batch.
 
-The ``Trainer`` runs on one device (default the first card; without one it
-raises unless given ``device="cpu"``): the global batch is
-``cfg.data.batch_size``, batches go to the device through ``to_device`` on
-the loader's prefetch thread, and the train step's random draws come from
-one ``torch.Generator`` on the device seeded with ``train.seed`` (like the
-JAX trainer's key, it is not restored on resume). Data parallelism is not
-ported.
+The ``Trainer`` runs on every rank of the joined group (``parallel/``; one
+rank, on the first card, without one; without a card it raises unless given
+``device="cpu"``). As in the JAX trainer, ``cfg.data.batch_size`` is per
+rank and the global batch is it times the ranks: each rank's loader reads
+its block of every global batch, ``shard_batch`` uploads it on the
+loader's prefetch thread, and the train step's random draws come from one
+``torch.Generator`` on the device seeded with ``train.seed`` on every rank
+(like the JAX trainer's key, it is not restored on resume). Rank 0 alone
+writes the run's files (``config.json``, ``metrics.jsonl``, overlays,
+checkpoints) and decides what to save and when to stop, and tells the other
+ranks; ``ValidationMetrics`` gathers the ranks' outputs to it in the global
+batch's order.
 """
 
 from __future__ import annotations
@@ -29,13 +34,13 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from ..data.dataset import (BTXRD, BTXRDLoader, DataConfig, DeviceEvalCache, Prefetcher,
-                            to_device)
+from ..data.dataset import BTXRD, BTXRDLoader, DataConfig, DeviceEvalCache, Prefetcher
 from ..data.preprocess import AugmentConfig
 from ..losses import LossConfig
 from ..metrics import BinarySegMetrics, ClassificationMetrics, MeanAveragePrecision
 from ..metrics.segmentation import mask_map_inputs_from_counts
 from ..models import ModelConfig
+from ..parallel import create_mesh, dist, replicate, shard_batch
 from ..utils.logging import RunLogger
 from ..utils.profiling import PhaseTimer, annotate
 from .checkpoint import CheckpointManager
@@ -154,10 +159,19 @@ class ValidationMetrics:
         self._pending.append((small, host))
 
     def _drain(self) -> None:
+        """Apply the pending batches; on N ranks rank 0 applies every rank's
+        rows, gathered in the global batch's order (the others only send)."""
         if not self._pending:
             return
         pending, self._pending = self._pending, []
-        for d, (_, host) in zip(_to_host([small for small, _ in pending]), pending):
+        batches = [(d, host) for d, (_, host) in
+                   zip(_to_host([small for small, _ in pending]), pending)]
+        if dist.active():
+            every = dist.gather_objects(batches)
+            if every is None:
+                return
+            batches = [_merge_ranks(parts) for parts in zip(*every)]
+        for d, host in batches:
             metrics = {k[2:]: v for k, v in d.items() if k.startswith("m:")}
             small = {k: v for k, v in d.items() if not k.startswith("m:")}
             self._apply(metrics, small, host)
@@ -178,7 +192,11 @@ class ValidationMetrics:
         self.map50_95.update(preds, targets)
 
     def compute(self, full_map: bool) -> Dict[str, float]:
+        """The metric table, on every rank (rank 0's, on N ranks)."""
         self._drain()
+        return dist.broadcast_object(self._table(full_map) if dist.is_main() else None)
+
+    def _table(self, full_map: bool) -> Dict[str, float]:
         out = {f"{k}": float(np.mean(v)) for k, v in self.losses.items()}
         out.update({f"seg_{k}": v for k, v in self.seg.compute().items()})
         out.update({f"seg_map_{k}": v for k, v in self.seg_map.compute().items()
@@ -197,6 +215,16 @@ class ValidationMetrics:
         return out
 
 
+def _merge_ranks(parts) -> tuple:
+    """One batch's (outputs, host fields) from every rank, as one batch: the
+    per-sample arrays concatenated in rank order; the losses (``m:``) and
+    ``cm_counts``, which the eval step summed over the ranks, as they are."""
+    outs, hosts = zip(*parts)
+    out = {k: v if k.startswith("m:") or k == "cm_counts"
+           else np.concatenate([o[k] for o in outs]) for k, v in outs[0].items()}
+    return out, {k: np.concatenate([h[k] for h in hosts]) for k in hosts[0]}
+
+
 def _host(tensors: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     """``tensors`` as numpy arrays, in one device-to-host copy."""
     return _to_host([tensors])[0]
@@ -211,13 +239,18 @@ class Trainer:
         torch state dicts for the reference's pretrained warm start (timm
         convnext_tiny, YOLOv8 heads; ``utils/import_torch_weights.py``).
         ``device``: the card by default; without one this raises unless
-        given ``"cpu"``."""
+        given ``"cpu"``. On N ranks each passes its own card (the one
+        ``parallel.dist.join`` set)."""
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Trainer: no CUDA device; pass device='cpu' to train on the CPU")
         self.cfg = cfg
-        self.logger = RunLogger(cfg.run_dir, cfg.wandb_project)
-        self.global_batch = cfg.data.batch_size
+        self.mesh = create_mesh(device=self.device)
+        self.is_main = dist.is_main()
+        self.logger = RunLogger(cfg.run_dir, cfg.wandb_project, enabled=self.is_main)
+        # DataConfig.batch_size is per rank, as the JAX trainer's is per device
+        self.global_batch = cfg.data.batch_size * self.mesh.shape["data"]
+        self.shard = (self.mesh.data_index, self.mesh.shape["data"])
         self.train_ds = BTXRD(cfg.data, "train", device=self.device)
         self.val_ds = BTXRD(cfg.data, "val", device=self.device)
         if len(self.train_ds) == 0:
@@ -231,14 +264,14 @@ class Trainer:
                                       top_k=self.train_cfg.ckpt_top_k)
         # the model / loss / data config beside the checkpoints, so that
         # cli/evaluate.py defaults its flags from the trained config
-        cfg_path = Path(f"{cfg.run_dir}/{self.train_cfg.ckpt_dir}/config.json")
-        cfg_path.write_text(json.dumps({
-            "model": dataclasses.asdict(cfg.model),
-            "loss": dataclasses.asdict(cfg.loss),
-            "data": {"img_size": cfg.data.img_size,
-                     "max_boxes": cfg.data.max_boxes,
-                     "upload_streams": cfg.data.upload_streams},
-        }, indent=2, default=list))
+        if self.is_main:
+            Path(f"{cfg.run_dir}/{self.train_cfg.ckpt_dir}/config.json").write_text(json.dumps({
+                "model": dataclasses.asdict(cfg.model),
+                "loss": dataclasses.asdict(cfg.loss),
+                "data": {"img_size": cfg.data.img_size,
+                         "max_boxes": cfg.data.max_boxes,
+                         "upload_streams": cfg.data.upload_streams},
+            }, indent=2, default=list))
         self.generator = torch.Generator(device=self.device).manual_seed(self.train_cfg.seed)
         self._val_cache: Optional[DeviceEvalCache] = None
 
@@ -250,10 +283,14 @@ class Trainer:
         if resume:
             path = None if resume == "auto" else resume
             if resume == "auto" and self.ckpt.last_path() is None:
-                print("[trainer] --resume auto: no checkpoint yet, starting fresh")
+                self._say("[trainer] --resume auto: no checkpoint yet, starting fresh")
             else:
                 self.state = self.ckpt.restore(self.state, path)
-                print(f"[trainer] resumed from step {self.state.step}")
+                self._say(f"[trainer] resumed from step {self.state.step}")
+        # every rank built or restored the same state; make sure of it
+        st = self.state
+        replicate([*st.model.parameters(), *st.model.buffers(), st.mu, st.nu, st.count],
+                  self.mesh)
 
     # ------------------------------------------------------------------
     def fit(self, max_epochs: Optional[int] = None) -> TrainState:
@@ -265,7 +302,7 @@ class Trainer:
             raise
         except Exception:
             step = self.state.step
-            if step > 0:
+            if step > 0 and self.is_main:
                 self.ckpt.save(self.state, step, metric=None)
                 print(f"[trainer] crash — emergency checkpoint at step {step}")
             raise
@@ -284,8 +321,9 @@ class Trainer:
             t0 = time.time()
             timer = PhaseTimer()
             loader = BTXRDLoader(self.train_ds, self.global_batch, shuffle=True,
-                                 drop_last=True, seed=self.train_cfg.seed + epoch)
-            it = iter(Prefetcher(loader, map_fn=lambda b: to_device(b, self.device)))
+                                 drop_last=True, seed=self.train_cfg.seed + epoch,
+                                 shard=self.shard)
+            it = iter(Prefetcher(loader, map_fn=self._upload))
             aux, last_batch = None, None
             while True:
                 with timer.phase("data"):
@@ -297,12 +335,13 @@ class Trainer:
                     self.state, metrics, aux = self.train_step(self.state, batch, self.generator)
                 global_step += 1
                 if global_step % cfg.log_every == 0:
-                    # one host copy; under mosaic the step's batch is the
-                    # first B // 4 images' labels (data/preprocess.py)
-                    n = aux["cls_logits"].shape[0]
+                    # the global batch's logits; under mosaic its labels are
+                    # the first B // 4 images' (data/preprocess.py)
+                    logits = dist.gather_rows(aux["cls_logits"])
+                    labels = dist.gather_rows(batch["img_cls"])[:logits.shape[0]]
+                if global_step % cfg.log_every == 0 and self.is_main:
                     host = _host({**{f"m:{k}": v for k, v in metrics.items()},
-                                  "cls_logits": aux["cls_logits"],
-                                  "img_cls": batch["img_cls"][:n]})
+                                  "cls_logits": logits, "img_cls": labels})  # one host copy
                     logged = {k[2:]: float(v) for k, v in host.items() if k.startswith("m:")}
                     logged["lr"] = lr_at(self.train_cfg, global_step)
                     tc = ClassificationMetrics(cfg.model.nc_img)
@@ -310,8 +349,8 @@ class Trainer:
                     logged.update({f"img_{k}": v for k, v in tc.compute().items()})
                     self.logger.log(logged, global_step, prefix="train_step", to_console=True)
 
-            if aux is not None and epoch % cfg.viz_every_epochs == 0:
-                with timer.phase("viz"):  # the overlays draw the first 4 images
+            if aux is not None and epoch % cfg.viz_every_epochs == 0 and self.is_main:
+                with timer.phase("viz"):  # the overlays draw rank 0's first 4 images
                     host = _host({"image": aux["image"][:4], "seg_prob": aux["seg_prob"][:4],
                                   "mask": last_batch["mask"][:4]})
                     imgs = host["image"].astype(np.float32)
@@ -327,27 +366,42 @@ class Trainer:
             want_save = (self.ckpt.qualifies(map50)
                          or epoch % max(1, self.train_cfg.save_last_every) == 0
                          or epoch == epochs - 1)
+            stop = (not map50 > best_metric
+                    and epoch - best_epoch >= self.train_cfg.early_stop_patience)
+            if map50 > best_metric:
+                best_metric, best_epoch = map50, epoch
+            # rank 0's index decides; every rank leaves the loop together
+            want_save, stop = dist.broadcast_object((want_save, stop))
             with timer.phase("checkpoint"):
-                if want_save:
+                if want_save and self.is_main:
                     self.ckpt.save(self.state, global_step, metric=map50, epoch=epoch)
+                dist.barrier()
             self.logger.log({"epoch": epoch, "epoch_time_s": time.time() - t0,
                              **{f"phase_{k}_s": round(v, 4) for k, v in timer.totals.items()}},
                             global_step, prefix="train_epoch")
-            if map50 > best_metric:
-                best_metric, best_epoch = map50, epoch
-            elif epoch - best_epoch >= self.train_cfg.early_stop_patience:
-                print(f"[early-stop] no val mAP50 improvement for "
-                      f"{self.train_cfg.early_stop_patience} epochs")
+            if stop:
+                self._say(f"[early-stop] no val mAP50 improvement for "
+                          f"{self.train_cfg.early_stop_patience} epochs")
                 break
         return self.state
 
     # ------------------------------------------------------------------
+    def _say(self, text: str) -> None:
+        if self.is_main:  # the other ranks' consoles would repeat it
+            print(text)
+
+    def _upload(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        """This rank's rows (which its loader read) on its device."""
+        return shard_batch(batch, self.mesh, local=True)
+
     def _ensure_val_cache(self) -> DeviceEvalCache:
-        # the val split on the device: read and copied once, replayed after
+        # this rank's rows of the val split on the device: read and copied
+        # once, replayed after
         if self._val_cache is None:
             self._val_cache = DeviceEvalCache(
-                lambda: BTXRDLoader(self.val_ds, self.global_batch, pad_last=True),
-                lambda b: to_device(b, self.device))
+                lambda: BTXRDLoader(self.val_ds, self.global_batch, pad_last=True,
+                                    shard=self.shard),
+                self._upload)
         return self._val_cache
 
     def validate(self, epoch: int, global_step: int) -> Dict[str, float]:
@@ -357,10 +411,12 @@ class Trainer:
         for batch, dev_batch in self._ensure_val_cache():
             metrics, aux = self.eval_step(self.state, dev_batch)
             vm.update(metrics, aux, batch)
-            if first and epoch % cfg.viz_every_epochs == 0:
+            if first and epoch % cfg.viz_every_epochs == 0 and self.is_main:
                 self._log_examples(batch, aux, epoch, global_step)
             first = False
         out = vm.compute(full_map=epoch % self.train_cfg.map_full_freq == 0)
+        if not self.is_main:
+            return out
         self.logger.log(out, global_step, prefix="val_epoch", to_console=True)
         self.logger.log_confusion_matrix(vm.cls.normalized_cm(),
                                          {i: f"imgC{i}" for i in range(cfg.model.nc_img)},

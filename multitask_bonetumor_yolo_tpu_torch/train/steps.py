@@ -10,6 +10,15 @@ Eval step: the reference's validation forward (``train=False,
 mode="train"``: body BN on running statistics, head BN on the batch's), the
 loss with ``train=False``, decode and NMS at the config's eval thresholds,
 and the segmentation and confusion-matrix summaries, all on the device.
+
+On N ranks (``parallel/dist.py``) each step takes this rank's rows of the
+global batch and computes what the JAX step computes on the whole batch,
+sharded over its mesh: BN statistics and loss normalisers are global
+(``models/common.py``, ``losses/multitask.py``); the train step sums the
+gradient over the ranks in one all-reduce, with its metrics in the same
+buffer, before the optimizer, so that clipping, the non-finite skip and
+AdamW take the same decision on every rank; the eval step sums its losses
+and ``cm_counts``. NMS and the per-sample outputs stay per rank.
 """
 
 from __future__ import annotations
@@ -23,6 +32,7 @@ from ..losses import LossConfig, multitask_loss
 from ..models import ModelConfig
 from ..models.heads import decode_detections
 from ..ops.nms import postprocess_detections
+from ..parallel import dist
 from .state import TrainConfig, TrainState
 
 
@@ -46,10 +56,12 @@ def make_train_step(model_cfg: ModelConfig, loss_cfg: LossConfig,
         out = state.model(batch["image"], train=True, mode="train")
         lo = multitask_loss(out, batch, loss_cfg, train=True)
         grads = torch.autograd.grad(lo.total, params, allow_unused=True)
+        losses = {"loss_total": lo.total, **{f"loss_{k}": v for k, v in lo.components.items()}}
+        if dist.active():
+            grads, losses = _sum_over_ranks(params, grads, losses)
         grad_norm, ok = state.apply_gradients(grads, bn_before)
         metrics = {
-            "loss_total": lo.total,
-            **{f"loss_{k}": v for k, v in lo.components.items()},
+            **losses,
             "num_pos": lo.num_pos,
             "avg_iou": lo.avg_iou,
             "grad_norm": grad_norm,
@@ -64,6 +76,17 @@ def make_train_step(model_cfg: ModelConfig, loss_cfg: LossConfig,
         return state, metrics, aux
 
     return train_step
+
+
+def _sum_over_ranks(params, grads, losses):
+    """The gradients (``None`` is zero) and the loss terms summed over the
+    ranks, in one all-reduce of one fp32 buffer."""
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+    flat = dist.sum_(torch.cat([g.reshape(-1).float() for g in grads]
+                               + [torch.stack([v.detach().float() for v in losses.values()])]))
+    parts = flat.split([g.numel() for g in grads] + [len(losses)])
+    grads = [v.view_as(g) for v, g in zip(parts, grads)]
+    return grads, dict(zip(losses, parts[-1].unbind()))
 
 
 def make_eval_step(model_cfg: ModelConfig, loss_cfg: LossConfig,
@@ -114,6 +137,11 @@ def make_eval_step(model_cfg: ModelConfig, loss_cfg: LossConfig,
             cm_idx = (lo.matched_gt_cls.long() * nc + lo.matched_pred_cls.long()).reshape(-1)
             cm_counts = torch.zeros(nc * nc, dtype=torch.int64, device=cm_idx.device).index_add_(
                 0, cm_idx, cm_mask.reshape(-1).long()).view(nc, nc)
+            if dist.active():  # one all-reduce, in fp64 (exact for the counts)
+                flat = dist.sum_(torch.cat([torch.stack(list(metrics.values())).double(),
+                                            cm_counts.reshape(-1).double()]))
+                metrics = dict(zip(metrics, flat[:len(metrics)].float().unbind()))
+                cm_counts = flat[len(metrics):].long().view(nc, nc)
             aux = {
                 "nms_boxes": nms.boxes,
                 "nms_scores": nms.scores,

@@ -35,13 +35,21 @@ def _try_wandb(project: Optional[str]):
 
 
 class RunLogger:
+    """The run's scalars and overlays. ``enabled=False`` (the ranks other
+    than 0 of a data-parallel run, which rank 0 speaks for) writes, prints
+    and opens nothing."""
+
     def __init__(
         self,
         run_dir: str,
         wandb_project: Optional[str] = None,
         print_every: int = 10,
+        enabled: bool = True,
     ):
+        self.enabled = enabled
         self.dir = Path(run_dir)
+        if not enabled:
+            return
         self.dir.mkdir(parents=True, exist_ok=True)
         (self.dir / "media").mkdir(exist_ok=True)
         self._jsonl = open(self.dir / "metrics.jsonl", "a")
@@ -51,6 +59,8 @@ class RunLogger:
 
     def log(self, metrics: Mapping[str, float], step: int, prefix: str = "",
             to_console: bool = False) -> None:
+        if not self.enabled:
+            return
         payload = {
             (f"{prefix}/{k}" if prefix else k): _to_float(v)
             for k, v in metrics.items()
@@ -81,6 +91,8 @@ class RunLogger:
     ) -> Sequence[Path]:
         """Red = prediction, green = GT (mirrors multitask_logging.py:80-132)."""
         paths = []
+        if not self.enabled:
+            return paths
         n = min(len(images), max_samples)
         for i in range(n):
             img = _to_uint8(images[i]).astype(np.float32)
@@ -111,6 +123,8 @@ class RunLogger:
         """White = prediction (above conf_th), green = GT
         (mirrors multitask_logging.py:173-256)."""
         paths = []
+        if not self.enabled:
+            return paths
         n = min(len(images), max_samples)
         for i in range(n):
             img = _to_uint8(images[i]).copy()
@@ -139,6 +153,8 @@ class RunLogger:
     ) -> Optional[Path]:
         """Heatmap PNG via matplotlib (mirrors
         plot_confusion_matrix_to_wandb, running_main_v3.py:113-144)."""
+        if not self.enabled:
+            return None
         try:
             import matplotlib
 
@@ -163,6 +179,8 @@ class RunLogger:
         return p
 
     def close(self) -> None:
+        if not self.enabled:
+            return
         self._jsonl.close()
         if self._wandb is not None:  # pragma: no cover
             self._wandb.finish()

@@ -815,3 +815,96 @@ def test_jpeg_host_entropy_matches_python(dev):
                 decode()
     for ns in (0, 5):
         assert k6._library().jpeg_entropy_scan(b"", 0, 0, ns, None, None, 0, 0, 0, None) == 3
+
+
+def test_nccl_ranks_over_every_card(dev, tmp_path):
+    """``parallel.dist`` over NCCL with one rank per visible card (one rank
+    on a one-card machine: the world-size-1 group), spawned as the CLIs
+    spawn theirs: each rank on its own card, the sum of the ranks' tensors,
+    the rows gathered in rank order (booleans too), rank 0's object."""
+    import json
+
+    import torch_parallel_worker as worker
+    from multitask_bonetumor_yolo_tpu_torch.parallel import dist
+
+    n = torch.cuda.device_count()
+    spec = tmp_path / "spec.json"
+    spec.write_text(json.dumps({"out": str(tmp_path), "device": "cuda", "collectives": True}))
+    dist.spawn(worker.run, (str(spec),), n, str(tmp_path), device="cuda", backend="nccl",
+               deadline_s=300)
+    for r in range(n):
+        got = torch.load(tmp_path / f"rank{r}.pt", weights_only=False)["collectives"]
+        assert got["device"] == f"cuda:{r}"
+        assert torch.equal(got["sum"], torch.full((3,), n * (n + 1) / 2))
+        assert torch.equal(got["rows"], torch.arange(n).repeat_interleave(2)[:, None].expand(-1, 2))
+        assert got["flags"].tolist() == [i % 2 == 0 for i in range(n)]
+        assert got["object"] == {"from": 0}
+
+
+DDP_CFG = dict(img_size=128, single_head=False, backbone_depths=(1, 1, 1, 1),
+               backbone_dims=(48, 96, 192, 384), bifpn_num_layers=1, bifpn_feature_size=64,
+               proto_ch=8, dtype="float32")
+
+
+def test_two_gloo_ranks_on_one_card_match_one(dev, tmp_path):
+    """Two gloo ranks (rank r on card r modulo the cards: both on card 0 of
+    a one-card machine; 4 rows each) against one rank on the global batch
+    of 8 for a train step at a small width (128 px, widths 48-384, depths
+    1, HSV and flip, ``pallas`` and ``block_bwd`` "auto"),
+    in fp32 with TF32 off (K1's saving form and K2 in their fp32 designs):
+    they launch once per block (4) on each rank and on the one; the loss
+    within 1e-4, grad_norm and the applied gradient within 1e-3 relative
+    norm (the conv biases in front of a train-mode BN, whose gradient is
+    rounding noise, within 1e-3 of the largest gradient element), the BN
+    statistics within 1e-3; the ranks' states equal bit for bit. (In bf16
+    the gradient behind the neck's train-mode BNs is mostly rounding noise,
+    which follows the order of the sums; chip_smoke.py's phase ``ddp``
+    prints that gap at full width beside one rank's own.)"""
+    import json
+    import re
+
+    import torch_parallel_worker as worker
+    from multitask_bonetumor_yolo_tpu_torch.data.synthetic import synthetic_batch
+    from multitask_bonetumor_yolo_tpu_torch.models import ModelConfig
+    from multitask_bonetumor_yolo_tpu_torch.parallel import create_mesh, dist
+
+    sd = perturbed_model(ModelConfig(**DDP_CFG)).state_dict()
+    host = {k: v.numpy() for k, v in synthetic_batch(8, 128, torch.Generator().manual_seed(2)).items()}
+    host["mask"] = host["mask"].astype(np.uint8)
+    torch.save({"state_dict": sd, "batch": {k: torch.from_numpy(v) for k, v in host.items()}},
+               tmp_path / "steps.pt")
+    steps = {"inputs": str(tmp_path / "steps.pt"), "model": DDP_CFG,
+             "loss": {"img_size": 128, "iou_match_thresh": 0.15}, "train": {"lr": 1e-4},
+             "augment": {"hsv_h": 0.015, "hsv_s": 0.7, "hsv_v": 0.4, "hflip_prob": 0.5},
+             "seed": 3, "n": 1}
+    spec = tmp_path / "spec.json"
+    spec.write_text(json.dumps({"out": str(tmp_path), "device": "cuda", "steps": steps}))
+    dist.spawn(worker.run, (str(spec),), 2, str(tmp_path), device="cuda", backend="gloo",
+               deadline_s=300)
+    ranks = [torch.load(tmp_path / f"rank{r}.pt", weights_only=False)["steps"] for r in range(2)]
+    one = worker.train_steps(DDP_CFG, steps["loss"], steps["train"], steps["augment"], sd, host,
+                             create_mesh(device=dev, world_size=1, rank=0), steps["seed"], n=1)
+    torch.cuda.synchronize()
+    assert one["launches"] == [(0, 4, 4)] and all(r["launches"] == [(0, 4, 4)] for r in ranks)
+    a, b = ranks[0]["metrics"][0], one["metrics"][0]
+    assert b["step_skipped"] == 0.0 and a["step_skipped"] == 0.0
+    assert abs(a["loss_total"] / b["loss_total"] - 1) <= 1e-4
+    assert abs(a["grad_norm"] / b["grad_norm"] - 1) <= 1e-3
+    names = [n for n, _ in one["state"].model.named_parameters()]
+    noise = [bool(re.search(r"ConvBN_0\.Conv_0\.bias$", n)) for n in names]
+    got, want = ranks[0]["applied"][0], [g.cpu() for g in one["applied"][0]]
+    top = max(float(g.abs().max()) for g in want)
+
+    def held(gs):
+        return torch.cat([g.reshape(-1).double() for g, z in zip(gs, noise) if not z])
+
+    assert float((held(got) - held(want)).norm() / held(want).norm()) <= 1e-3
+    assert all(float((g - w).abs().max()) <= 1e-3 * top
+               for g, w, z in zip(got, want, noise) if z)
+    sd1 = one["state"].model.state_dict()
+    stats = [k for k in sd1 if k.endswith(("running_mean", "running_var"))]
+    s1 = torch.cat([sd1[k].reshape(-1).cpu().double() for k in stats])
+    s2 = torch.cat([ranks[0]["state_dict"][k].reshape(-1).double() for k in stats])
+    assert float((s2 - s1).norm() / s1.norm()) <= 1e-3
+    for k, v in ranks[0]["state_dict"].items():
+        assert torch.equal(ranks[1]["state_dict"][k], v), k

@@ -175,8 +175,8 @@ def test_compose_masks_matches_jax(crop, img_size):
 def test_port_imports_no_jax():
     """Importing every module of the port leaves jax, cv2 and PIL out of
     sys.modules (a subprocess: this test process has jax loaded by
-    conftest). The walk must reach the evaluation, training and raw-BTXRD
-    paths' modules."""
+    conftest). The walk must reach the evaluation, training, raw-BTXRD and
+    data-parallel paths' modules."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         import multitask_bonetumor_yolo_tpu_torch as pkg
@@ -193,7 +193,8 @@ def test_port_imports_no_jax():
                      "cli.evaluate", "cli.train", "data.preprocess", "ops.resize",
                      "utils.profiling", "utils.import_torch_weights", "data.jpeg",
                      "ops.kernels.jpeg", "data.convert", "utils.xlsx", "cli.prepare_data",
-                     "cli.wrangle", "cli.show_sample", "cli.infer")
+                     "cli.wrangle", "cli.show_sample", "cli.infer", "parallel", "parallel.mesh",
+                     "parallel.dist", "parallel.pack")
         missing = sorted(m for m in eval_path if f"{pkg.__name__}.{m}" not in names)
         print(len(names), bad, missing)
         sys.exit(1 if bad or missing or len(names) < 30 else 0)
