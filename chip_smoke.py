@@ -207,6 +207,27 @@ is printed):
      launches and one of each of K6a and K6b per image, 48 overlays read
      back; "[raw-infer]") and ``cli.evaluate.main --image-ext .jpeg`` over
      the split ("[raw-evaluate]"; the JAX CLI's keys, finite).
+ 18. "tools" (after "raw"): the JAX repo's profiling scripts as the port's
+     tools, at full width and 640^2, through their entry points:
+     ``tools.bench_block`` (batch 16; K1 against the eager block at the
+     four stages, each maxdiff within the bf16 tolerance of |y|max, one K1
+     launch per call), ``tools.profile_infer`` (batch 16; 15 K1 launches per
+     full forward and per trunk or backbone call, 1 per stage-row call,
+     none in the neck, heads, decode, NMS or resize) and
+     ``tools.profile_train`` (batch 8; K1's saving form and K2 15 each per
+     full step, per fwd+bwd and per backbone fwd+bwd, K1 15 per train-mode
+     forward, and per stage-row call 1 of K1 under ``ref``, of K1 and K4
+     under ``fused_v1``, of K1's saving form and K2 under ``fused``, none
+     eager); each tool's rows are printed ("[tools]");
+ 19. "recipe" (after "tools"): the quality-parity recipe cut to
+     ``RECIPE_IMAGES`` JPEGs and ``RECIPE_EPOCHS`` epochs at 640^2, batch
+     8, TAL and frozen BN: ``tools.train_synthetic`` writes the split,
+     trains through ``cli.train`` and evaluates the best checkpoint through
+     ``cli.evaluate``; then ``tools.diagnose_det`` on its run directory.
+     Every image read decodes on the card, one K6a and one K6b launch per
+     read; every train step launches K1's saving form and K2 15 times, every
+     eval forward (the trainer's validation, ``cli.evaluate``'s and the
+     diagnosis's) K1 15 times; the table's metrics finite ("[recipe]").
 Each phase sets the launch counts to 0 right before the path it drives and
 reads them right after; the K3 and K4 launches of the kernels line are
 those of phase 12's pass over the trunk, K6a's and K6b's those of phase 17's
@@ -221,6 +242,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import math
 import subprocess
 import sys
 import time
@@ -1903,6 +1925,177 @@ def check_grads(name, got, want, tol):
     return err_dx, worst
 
 
+TOOLS_ITERS = {"bench_block": 2, "profile_infer": 2, "profile_train": 1}  # timeloop's n
+
+
+def run_tool(name, argv):
+    """``tools.<name>.main(argv)`` in process, its printed lines logged
+    behind "[tools]"; returns what main returns."""
+    import importlib
+
+    mod = importlib.import_module(f"multitask_bonetumor_yolo_tpu_torch.tools.{name}")
+    with contextlib.redirect_stdout(io.StringIO()) as printed:
+        out = mod.main(argv)
+    for line in printed.getvalue().splitlines():
+        if line.strip():
+            log(f"[tools] {name}: {line.rstrip()}")
+    return out
+
+
+def check_launches(where, got, want):
+    if got != want:
+        raise RuntimeError(f"[tools] {where}: launches per call {got}, want {want}")
+
+
+def phase_tools(card):
+    """The profiling tools at full width on the card (phase 18). Returns
+    {tool: seconds}."""
+    secs = {}
+    t0 = time.perf_counter()
+    bench = run_tool("bench_block", ["--iters", str(TOOLS_ITERS["bench_block"])])
+    secs["bench_block"] = time.perf_counter() - t0
+    for si, row in bench.items():
+        check_launches(f"bench_block stage {si}", row["launches"], {"K1": 1.0})
+        if not row["maxdiff"] <= BF16_TOL * (1.0 + row["scale"]):
+            raise RuntimeError(f"[tools] bench_block stage {si}: K1 {row['maxdiff']:.4f} from the "
+                               f"eager block, |y|max {row['scale']:.2f}, tolerance {BF16_TOL}")
+
+    t0 = time.perf_counter()
+    rows = run_tool("profile_infer", ["--iters", str(TOOLS_ITERS["profile_infer"])])
+    secs["profile_infer"] = time.perf_counter() - t0
+    k1 = {"FULL multitask infer (model+decode+NMS)": 15, "TRUNK total": 15,
+          "BACKBONE (trunk + 3 C2f adapters)": 15}
+    for row in rows:
+        n = k1.get(row["name"], 1 if row["name"].startswith("stage") else 0)
+        check_launches(f"profile_infer {row['name']}", row["launches"], {"K1": n} if n else {})
+    full = rows[0]
+    if not 0 < full["device_ms"] <= full["ms"] * 1.5:
+        raise RuntimeError(f"[tools] profile_infer: FULL device time {full['device_ms']} ms "
+                           f"against {full['ms']} ms by events")
+
+    t0 = time.perf_counter()
+    rows = run_tool("profile_train", ["--iters", str(TOOLS_ITERS["profile_train"])])
+    secs["profile_train"] = time.perf_counter() - t0
+    fused = {"K1 saving": 15, "K2": 15}
+    want = {"FULL train step (fwd+bwd+AdamW, no donate)": fused,
+            "fwd+bwd (value_and_grad, no opt)": fused, "forward + loss only": {"K1": 15},
+            "forward only (train mode, no loss)": {"K1": 15},
+            "BACKBONE fwd+bwd (trunk + C2f)": fused}
+    routes = {"ref": {"K1": 1}, "eager": {}, "fused_v1": {"K1": 1, "K4": 1},
+              "fused": {"K1 saving": 1, "K2": 1}}
+    for row in rows:
+        check_launches(f"profile_train {row['name']}", row["launches"],
+                       {k: float(v) for k, v in want.get(row["name"], {}).items()}
+                       if "routes" not in row else {k: float(v) for k, v in routes["ref"].items()})
+        for route, got in row.get("route_launches", {}).items():
+            check_launches(f"profile_train {row['name']} {route}", got,
+                           {k: float(v) for k, v in routes[route].items()})
+    if sum(1 for row in rows if "routes" in row) != len(STAGES):
+        raise RuntimeError("[tools] profile_train: not one row per stage")
+    log(f"[tools] seconds: {json.dumps({k: round(v, 1) for k, v in secs.items()})}; timeloop "
+        f"n per tool {json.dumps(TOOLS_ITERS)}; {card}")
+    return secs
+
+
+RECIPE_IMAGES = 24  # the recipe phase's split: 20 train (2 steps of 8), 4 val
+RECIPE_EPOCHS = 2
+
+
+def phase_recipe(cnb, k2, card):
+    """The quality-parity recipe cut to size, then the diagnosis (phase 19).
+    Returns the seconds of the recipe and of the diagnosis."""
+    from multitask_bonetumor_yolo_tpu_torch import train as train_pkg
+    from multitask_bonetumor_yolo_tpu_torch.cli import evaluate
+    from multitask_bonetumor_yolo_tpu_torch.data import dataset
+    from multitask_bonetumor_yolo_tpu_torch.ops.kernels import jpeg as k6
+    from multitask_bonetumor_yolo_tpu_torch.tools import diagnose_det, train_synthetic
+    from multitask_bonetumor_yolo_tpu_torch.train import loop
+
+    work = Path(__file__).resolve().parent / "build" / "recipe"
+    if work.exists():
+        import shutil
+
+        shutil.rmtree(work)
+    counts = (cnb.convnext_block, cnb.convnext_block_saving, k2.convnext_block_bwd)
+    per_call = {"train": [], "eval": []}
+    reads = [0]
+
+    def counted(kind, make):
+        def wrapped(*a, **k):
+            step = make(*a, **k)
+
+            def run(*args):
+                before = tuple(fn.launches for fn in counts)
+                out = step(*args)
+                per_call[kind].append(tuple(fn.launches - b for fn, b in zip(counts, before)))
+                return out
+            return run
+        return wrapped
+
+    read_image = dataset.read_image
+
+    def counted_read(*a, **k):
+        reads[0] += 1
+        return read_image(*a, **k)
+
+    patched = [(loop, "make_train_step", counted("train", loop.make_train_step)),
+               (loop, "make_eval_step", counted("eval", loop.make_eval_step)),
+               (evaluate, "make_eval_step", counted("eval", evaluate.make_eval_step)),
+               (train_pkg, "make_eval_step", counted("eval", train_pkg.make_eval_step)),
+               (dataset, "read_image", counted_read)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patched]
+    for mod, name, fn in patched:
+        setattr(mod, name, fn)
+    try:
+        reset_counts(*counts, k6.jpeg_idct, k6.jpeg_color)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as printed:
+            table = train_synthetic.main([
+                "--variant", "v1", "--epochs", str(RECIPE_EPOCHS), "--n-images",
+                str(RECIPE_IMAGES), "--assigner", "tal", "--eval-bn", "frozen",
+                "--data-dir", str(work / "data"), "--run-dir", str(work / "run")])
+        recipe_s = time.perf_counter() - t0
+        n_train_steps, n_eval = len(per_call["train"]), len(per_call["eval"])
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as diag:
+            maps = diagnose_det.main(["--run-dir", str(work / "run"), "--root",
+                                      str(work / "data")])
+        diag_s = time.perf_counter() - t0
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    text = printed.getvalue()
+    if "[train] finished" not in text or "[eval] best checkpoint" not in text:
+        raise RuntimeError("[recipe] train_synthetic did not train and evaluate")
+    if per_call["train"] != [(0, 15, 15)] * n_train_steps or n_train_steps != 2 * RECIPE_EPOCHS:
+        raise RuntimeError(f"[recipe] launches (K1, K1 saving, K2) per train step "
+                           f"{per_call['train']}")
+    if not per_call["eval"] or any(c != (15, 0, 0) for c in per_call["eval"]) \
+            or len(per_call["eval"]) == n_eval:
+        raise RuntimeError(f"[recipe] launches (K1, K1 saving, K2) per eval forward "
+                           f"{per_call['eval']} (recipe {n_eval})")
+    k6_launches = (k6.jpeg_idct.launches, k6.jpeg_color.launches)
+    if k6_launches != (reads[0], reads[0]) or reads[0] < RECIPE_IMAGES:
+        raise RuntimeError(f"[recipe] K6a, K6b launches {k6_launches} for {reads[0]} image reads")
+    keys = ("map_iou50_map", "map_iou50_95_map", "seg_dice", "img_accuracy", "loss_total")
+    bad = {k: table.get(k) for k in keys if not (k in table and math.isfinite(table[k]))}
+    if bad:
+        raise RuntimeError(f"[recipe] cli.evaluate's table: {bad}")
+    lines = diag.getvalue().splitlines()
+    if not any(ln.startswith("[diag] restored") for ln in lines) \
+            or not lines[-1].startswith("class-AGNOSTIC mAP50:"):
+        raise RuntimeError("[recipe] diagnose_det printed no diagnosis")
+    log(f"[recipe] train_synthetic ({RECIPE_IMAGES} JPEGs of 480-800 px, {RECIPE_EPOCHS} epochs "
+        f"of {n_train_steps // RECIPE_EPOCHS} steps of 8 at 640^2, TAL, frozen BN): "
+        f"{recipe_s:.1f} s with the data written; cli.evaluate on the best checkpoint: "
+        + ", ".join(f"{k} {table[k]:.4g}" for k in keys)
+        + f"; diagnose_det {diag_s:.1f} s: class-aware mAP50 {maps['class_aware']}, "
+        f"class-agnostic {maps['agnostic']}; launches (K1, K1 saving, K2) {per_call['train'][0]} "
+        f"per train step x {n_train_steps}, {per_call['eval'][0]} per eval forward x "
+        f"{len(per_call['eval'])}; K6a, K6b {k6_launches} for {reads[0]} reads; {card}")
+    return recipe_s, diag_s
+
+
 def phase_training_kernels(cnb, k2, dev, gen):
     """K1's saving form and K2 against their plain versions, then K2 timed.
     Besides the stage shapes, batch 1 at 13x11 (143 pixels: a partial
@@ -2969,8 +3162,8 @@ def timed_build(name):
     return path, report, time.perf_counter() - t0
 
 
-PHASES = ("kernel", "model", "infer-cli", "eval", "trainer", "ddp", "raw", "k2", "k2-split", "train",
-          "k3", "k4", "k4-split", "fwdbwd", "lab")
+PHASES = ("kernel", "model", "infer-cli", "eval", "trainer", "ddp", "raw", "tools", "recipe", "k2",
+          "k2-split", "train", "k3", "k4", "k4-split", "fwdbwd", "lab")
 
 
 def main(argv=None) -> int:
@@ -3043,6 +3236,8 @@ def main(argv=None) -> int:
         ("trainer", lambda: phase_trainer(cnb, k2, dev, card)),
         ("ddp", lambda: phase_ddp(dev, card, r["trainer"][1] if "trainer" in r else None)),
         ("raw", lambda: phase_raw(cnb, dev, gen, card)),
+        ("tools", lambda: phase_tools(card)),
+        ("recipe", lambda: phase_recipe(cnb, k2, card)),
         ("k2", lambda: phase_training_kernels(cnb, k2, dev, gen)),
         ("k2-split", lambda: phase_k2_split(cnb, k2, dev, gen)),
         ("train", lambda: phase_train(cnb, k2, dev, gen)),

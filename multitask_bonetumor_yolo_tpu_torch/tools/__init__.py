@@ -1,3 +1,6 @@
-"""Diagnostic entry points of the port (not part of the library): the kernel
-lab (``python -m multitask_bonetumor_yolo_tpu_torch.tools.kernel_lab``) and
-K1's Hopper design with parts cut out (``...tools.k1_knockout``)."""
+"""Entry points of the port outside the library, each run as
+``python -m multitask_bonetumor_yolo_tpu_torch.tools.<name>``: the
+counterparts of the JAX repo's scripts (``kernel_lab``, ``bench_block``,
+``profile_infer``, ``profile_train``, ``train_synthetic``, ``diagnose_det``),
+and the card's own diagnostics of its kernels (``k1_knockout``,
+``k3_variants``)."""

@@ -40,6 +40,7 @@ import torch
 
 from ..ops.kernels import kernel_lab as lab
 from ..utils.timing import timeloop
+from .common import resolve_device
 
 DEFAULT_VARIANTS = "copy,dw,dwln,mlp,mlpgelu,full"
 
@@ -117,9 +118,7 @@ def main(argv=None) -> dict:
                     help="torch device (default cuda; 'cpu' runs the plain versions)")
     args = ap.parse_args(argv)
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass --device cpu to run the plain versions")
+    device = resolve_device(args.device)
     hw, c = stage_shape(args.stage, args.img)
     variants = args.variants.split(",")
     for v in variants:

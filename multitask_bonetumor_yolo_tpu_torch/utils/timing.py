@@ -53,3 +53,42 @@ def timeloop(fn, n_iters: int, reps: int = 3, device: str = "cuda") -> float:
         lo = min(lo, _turn_ms(fn, n_iters, device))
         hi = min(hi, _turn_ms(fn, 3 * n_iters, device))
     return max(hi - lo, 1e-9) / (2 * n_iters)
+
+
+MARK = "spin_kernel"  # torch.cuda._sleep's kernel: the markers of device_ms's window
+
+
+def device_ms(fn, iters: int = 5, attempts: int = 3) -> float:
+    """Device time per call of ``fn``: the kernels' time in a ``torch.profiler``
+    trace of ``iters`` back-to-back calls, after a warm-up call. The window
+    is fenced by a marker kernel (``torch.cuda._sleep``) on each side, with
+    a call of ``fn`` before the first and after the last inside the trace:
+    the profiler has dropped a trace's first and last device events on the
+    H100 machine. A trace that lost a marker or recorded no device time is
+    taken again, up to ``attempts`` traces; then this raises. Unlike
+    :func:`timeloop`'s CUDA events it leaves out the host's share of a call,
+    which events take in when the host issues calls slower than the device
+    runs them."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("device_ms: no CUDA device")
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(attempts):
+        with torch.profiler.profile(activities=acts, acc_events=True) as prof:
+            fn()
+            torch.cuda._sleep(1)
+            for _ in range(iters):
+                fn()
+            torch.cuda._sleep(1)
+            fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        marks = sorted(e.time_range.start for e in events if MARK in e.name)
+        if len(marks) != 2:
+            continue
+        ms = sum(e.device_time for e in events
+                 if MARK not in e.name and marks[0] < e.time_range.start < marks[1]) / 1e3
+        if ms > 0:
+            return ms / iters
+    raise RuntimeError(f"device_ms: no fenced device time in {attempts} traces")
