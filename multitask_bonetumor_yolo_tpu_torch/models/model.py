@@ -16,8 +16,9 @@ Body BN follows ``train``, head BN follows ``mode == "train"`` (the
 reference's quirk, kept by the JAX model): ``train=True, mode="train"`` is the
 training forward, ``train=False, mode="train"`` the reference's validation
 forward (body BN on running statistics, heads on batch statistics),
-``train=False, mode="infer"`` inference. ``train=True, mode="infer"``, which
-nothing runs, raises ``NotImplementedError``.
+``train=False, mode="infer"`` inference, and ``train=True, mode="infer"``
+body BN on batch statistics (running statistics moved), heads on running
+statistics, then the decode.
 """
 
 from __future__ import annotations
@@ -102,8 +103,6 @@ class MultitaskModel(nn.Module):
         """``x``: NHWC [B, S, S, 3] float images in [0, 1]."""
         if mode not in ("train", "infer"):
             raise ValueError(f"Unknown mode {mode!r}. Expected 'train' or 'infer'.")
-        if train and mode == "infer":
-            raise NotImplementedError("train=True with mode='infer' is not ported")
         cfg = self.cfg
         dt = cfg.compute_dtype
         head_train = mode == "train"
@@ -147,34 +146,51 @@ class MultitaskModel(nn.Module):
         return out
 
 
+# The standard deviation of a standard normal cut to [-2, 2]: Flax's
+# ``variance_scaling(..., "truncated_normal")`` divides by it so that the cut
+# draw keeps the variance ``scale / fan_in``.
+TRUNCATED_NORMAL_STD = 0.87962566103423978
+
+
 @torch.no_grad()
 def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Seeded initialisation in the spirit of the Flax initialisers: fan-in
-    scaled normal weights (He for the ConvNeXt blocks), zero biases, unit
-    norms, layer-scale gamma 1e-6, BiFPN fusion weights 1, ultralytics
-    detect-bias priors. Draws on ``generator``'s device."""
+    """Seeded initialisation from the Flax initialisers the JAX model names:
+    ``lecun_normal`` for every conv, linear, transposed-conv and patchify
+    kernel, ``variance_scaling(2.0, "fan_in", "truncated_normal")`` for the
+    ConvNeXt blocks' ``dw_kernel``, ``w1`` and ``w2``. Both draw a standard
+    normal truncated to [-2, 2] times ``sqrt(scale / fan_in) /
+    TRUNCATED_NORMAL_STD``, with fan-in taken as Flax takes it on the JAX
+    kernel's shape (k*k*in/groups for a conv, 4*in for the 2x2 transposed
+    conv, 49 for ``dw_kernel``). The constants are the JAX model's: zero
+    biases, unit norms, layer-scale gamma 1e-6, BiFPN fusion weights 1, the
+    ultralytics detect-bias priors. Draws on ``generator``'s device."""
 
-    def normal_(t, std):
-        t.copy_(torch.randn(t.shape, generator=generator, device=generator.device) * std)
+    lo, hi = math.erf(-2.0 / math.sqrt(2.0)), math.erf(2.0 / math.sqrt(2.0))
 
-    def fan_in(w):
-        return w[0].numel()
+    def truncated_(t, scale, fan_in):
+        # jax.random.truncated_normal: the inverse CDF of a uniform between
+        # the bounds' CDF values, clamped to the bounds
+        u = torch.rand(t.shape, generator=generator, device=generator.device,
+                       dtype=torch.float64) * (hi - lo) + lo
+        z = (math.sqrt(2.0) * torch.erfinv(u)).float().clamp_(-2.0, 2.0)
+        t.copy_(z * (math.sqrt(scale / fan_in) / TRUNCATED_NORMAL_STD))
 
     for mod in model.modules():
         if isinstance(mod, ConvNeXtBlock):
-            normal_(mod.dw_kernel, math.sqrt(2.0 / 49))
-            normal_(mod.w1, math.sqrt(2.0 / mod.w1.shape[1]))
-            normal_(mod.w2, math.sqrt(2.0 / mod.w2.shape[1]))
+            c = mod.dw_kernel.shape[0]
+            truncated_(mod.dw_kernel, 2.0, 49)
+            truncated_(mod.w1, 2.0, c)
+            truncated_(mod.w2, 2.0, 4 * c)
             for p in (mod.dw_bias, mod.ln_bias, mod.b1, mod.b2):
                 p.zero_()
             mod.ln_scale.fill_(1.0)
             mod.gamma.fill_(1e-6)
         elif isinstance(mod, (nn.Conv2d, nn.Linear, PatchifyConv)):
-            normal_(mod.weight, 1.0 / math.sqrt(fan_in(mod.weight)))
+            truncated_(mod.weight, 1.0, mod.weight[0].numel())  # [out, in/groups, ...]
             if mod.bias is not None:
                 mod.bias.zero_()
         elif isinstance(mod, nn.ConvTranspose2d):
-            normal_(mod.weight, 1.0 / math.sqrt(mod.weight.shape[0] * 4))
+            truncated_(mod.weight, 1.0, mod.weight[:, 0].numel())  # [in, out, k, k]
             mod.bias.zero_()
         elif isinstance(mod, (nn.BatchNorm2d, nn.LayerNorm)):
             mod.weight.fill_(1.0)

@@ -140,19 +140,24 @@ def summarize(metrics_path, batch_size: int) -> dict:
     return {"epochs": rows, "best": best, "seconds": total, "phases": phases}
 
 
-def main(argv=None) -> dict:
-    """Run the recipe; returns ``cli.evaluate``'s metric table."""
-    args = make_parser().parse_args(argv)
-    resolve_device(args.device)
-
+def write_data(args) -> Path:
+    """Step 1: the rich synthetic split under ``args.data_dir``, unless its
+    ``img_cls.csv`` is there already."""
     from ..data.synthetic import make_synthetic_btxrd
 
     data_dir = Path(args.data_dir)
     if not (data_dir / "img_cls.csv").exists():
-        print(f"[synth] generating {args.n_images} rich images ...")
+        print(f"[synth] generating {args.n_images} rich images ...", flush=True)
         make_synthetic_btxrd(str(data_dir), n=args.n_images, seed=11, rich=True,
                              min_size=480, max_size=800, image_format="jpeg")
+    return data_dir
 
+
+def main(argv=None) -> dict:
+    """Run the recipe; returns ``cli.evaluate``'s metric table."""
+    args = make_parser().parse_args(argv)
+    resolve_device(args.device)
+    data_dir = write_data(args)
     run_dir = args.run_dir or os.path.join(tempfile.gettempdir(), f"synth_run_{args.variant}")
 
     from ..cli.train import main as train_main

@@ -8,9 +8,10 @@ its weights go through the bridge into the port, which runs the same input
 in fp32 on the CPU. Every output key must agree at the oracle tolerances
 (atol 2e-3, rtol 1e-3).
 
-The weights come from the port's seeded initialisation (the Flax
-initialisers' distributions, ``models/model.py::init_parameters``), perturbed
-with numpy, and reach the JAX model through the inverse of the bridge
+The weights come from the port's seeded initialisation (Flax's
+truncated-normal initialisers, ``models/model.py::init_parameters``, held
+against ``jax.jit(model.init)`` in tests/test_torch_init.py), perturbed with
+numpy, and reach the JAX model through the inverse of the bridge
 (:func:`jax_variables`): initialising the JAX model op by op takes ~40 s on
 the CPU, tracing it for its shapes ~3 s.
 """
@@ -191,14 +192,45 @@ def test_v2_single_head_slices_seg_preds(jax_run):
 
 
 def test_train_modes_raise():
-    """The train modes are ported (tests/test_torch_train.py); the one
-    combination nothing runs still raises, and so does an unknown mode."""
+    """Every (train, mode) pair of the JAX model runs (the train modes in
+    tests/test_torch_train.py, ``train=True, mode="infer"`` below); an
+    unknown mode raises."""
     model = MultitaskModel(ModelConfig(**CFG))
     x = torch.zeros(1, IMG, IMG, 3)
-    with pytest.raises(NotImplementedError):
-        model(x, train=True, mode="infer")
     with pytest.raises(ValueError):
         model(x, train=False, mode="eval")
+    with pytest.raises(ValueError):
+        model(x, train=True, mode="eval")
+
+
+def test_train_infer_mode_matches_jax(jax_run):
+    """``train=True, mode="infer"``: body BN on the batch's statistics
+    (running statistics moved), head BN on running statistics, then the
+    decode. Every output key at the oracle tolerances (atol 2e-3, rtol
+    1e-3) and every BN running statistic after the forward at 1e-5, against
+    the JAX model's ``apply(..., train=True, mode="infer",
+    mutable=["batch_stats"])``; the head statistics stay as they were."""
+    x, _, params, stats = jax_run
+    model = JaxMultitaskModel(JaxModelConfig(**CFG))
+    with jax.default_matmul_precision("highest"):
+        out, upd = jax.jit(lambda v, x: model.apply(
+            v, x, train=True, mode="infer", mutable=["batch_stats"]))(
+            {"params": params, "batch_stats": stats}, jnp.asarray(x))
+    port = _port(params, stats)
+    with torch.no_grad():
+        got = port(torch.from_numpy(x), train=True, mode="infer")
+    _assert_outputs_match(out, got)
+    want = flax_to_torch(params, jax.tree.map(np.asarray, upd["batch_stats"]))
+    before = flax_to_torch(params, stats)
+    sd = port.state_dict()
+    moved = 0
+    for k in (k for k in sd if k.endswith(("running_mean", "running_var"))):
+        np.testing.assert_allclose(sd[k].numpy(), want[k].numpy(), atol=1e-5, rtol=1e-5,
+                                   err_msg=k)
+        if k.startswith(("segment.", "detect.")):
+            assert torch.equal(sd[k], before[k]), k
+        moved += not torch.equal(sd[k], before[k])
+    assert moved > 50
 
 
 def test_infer_batch_serves_uint8_images(jax_run):

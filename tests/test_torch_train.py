@@ -313,31 +313,44 @@ def test_train_step_matches_jax(jax_run):
     assert held >= total // 2, (held, total)
 
 
-def test_kernel_route_trains_on_cpu(jax_run):
+def test_kernel_route_trains_on_cpu(jax_run, monkeypatch):
     """``pallas="on"`` on the CPU trains through the kernels' plain versions
     (K1's saving form and K2's plain backward, tanh-GELU) on every stage
-    under ``block_bwd="fused"``: the loss gradient stays within 2e-2 of the
-    eager erf path's scale per parameter (plus 1e-6 of the largest
-    gradient's: the zero gradients of conv biases in front of train-mode BN
-    are rounding noise), and no kernel launches."""
+    under ``block_bwd="fused"``, and no kernel launches. Per parameter the
+    loss gradient stays within 1e-4 of its scale of the eager path's with
+    the same tanh-GELU, and no farther from the eager erf path's than twice
+    the tanh-GELU eager path is (each plus 1e-6 of the largest gradient's:
+    the zero gradients of conv biases in front of train-mode BN are rounding
+    noise). The two GELUs alone part by up to 2.6 % of a gradient's scale at
+    this config (the ``b2`` of a stage-1 block)."""
+    import torch.nn.functional as F
+
     from multitask_bonetumor_yolo_tpu_torch.ops.kernels import convnext_block as cnb
     from multitask_bonetumor_yolo_tpu_torch.ops.kernels import convnext_block_bwd as k2
 
     run = jax_run
     counts = (cnb.convnext_block.launches, cnb.convnext_block_saving.launches,
               k2.convnext_block_bwd.launches)
+    gelu = F.gelu
     grads = {}
-    for over in (dict(pallas="on", block_bwd="fused"), dict()):
-        model = _port(run, **over)
-        lo = multitask_loss(model(_image(run), train=True, mode="train"),
-                            to_torch({k: v for k, v in run["batch"].items() if k != "image"}),
-                            LossConfig(**LOSS), train=True)
-        lo.total.backward()
-        grads[bool(over)] = {n: p.grad for n, p in model.named_parameters()
-                             if p.grad is not None}
+    for key, over in (("kernel", dict(pallas="on", block_bwd="fused")), ("tanh", {}),
+                      ("erf", {})):
+        with monkeypatch.context() as m:
+            if key == "tanh":  # the eager block's GELU in the kernels' form
+                m.setattr(F, "gelu", lambda x, approximate="none": gelu(x, approximate="tanh"))
+            model = _port(run, **over)
+            lo = multitask_loss(model(_image(run), train=True, mode="train"),
+                                to_torch({k: v for k, v in run["batch"].items() if k != "image"}),
+                                LossConfig(**LOSS), train=True)
+            lo.total.backward()
+        grads[key] = {n: p.grad for n, p in model.named_parameters() if p.grad is not None}
     assert counts == (cnb.convnext_block.launches, cnb.convnext_block_saving.launches,
                       k2.convnext_block_bwd.launches)
-    floor = 1e-6 * max(g.abs().max().item() for g in grads[False].values())
-    for name, want in grads[False].items():
-        err = (grads[True][name] - want).abs().max().item()
-        assert err <= 2e-2 * want.abs().max().item() + floor, (name, err)
+    assert grads["kernel"].keys() == grads["erf"].keys() == grads["tanh"].keys()
+    floor = 1e-6 * max(g.abs().max().item() for g in grads["erf"].values())
+    for name, want in grads["tanh"].items():
+        got, erf = grads["kernel"][name], grads["erf"][name]
+        err = (got - want).abs().max().item()
+        assert err <= 1e-4 * want.abs().max().item() + floor, (name, err)
+        err = (got - erf).abs().max().item()
+        assert err <= 2.0 * (want - erf).abs().max().item() + floor, (name, "erf", err)

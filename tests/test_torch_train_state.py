@@ -122,7 +122,7 @@ def test_lr_schedule_matches_optax():
         np.testing.assert_allclose(float(lr_at(tc, torch.tensor(count))), want, rtol=1e-6)
 
 
-def test_augmentation_is_not_ported_yet():
+def test_augment_apply_flips_and_defaults_only_normalise():
     """The augmentations are ported (held against JAX in
     tests/test_torch_augment.py): an enabled ``AugmentConfig`` no longer
     raises but flips the images and boxes its draws pick; the default config
