@@ -35,6 +35,7 @@ from ..models import ModelConfig, MultitaskModel
 from ..ops.masks import compose_masks
 from ..ops.nms import NMSResult, postprocess_detections
 from ..utils.logging import RunLogger
+from ..utils.profiling import span
 
 
 class InferResult(NamedTuple):
@@ -58,16 +59,20 @@ def infer_batch(
     uint8 images ``[B, S, S, 3]`` (numpy or tensor), on the model's device."""
     cfg = model.cfg
     dev = next(model.parameters()).device
-    img = torch.as_tensor(images_uint8_nhwc).to(dev).float() / 255.0
-    out = model(img, train=False, mode="infer")
-    det = postprocess_detections(
-        out["det_preds"], cfg.img_size, iou_thresh=nms_iou,
-        conf_thresh=conf_thresh, top_k=top_k,
-    )
-    inst = None
-    if instance_masks:
-        inst = compose_masks(out["seg_coeffs"], out["protos"], det,
-                             crop=mask_crop, img_size=cfg.img_size)
+    with span("infer"):
+        with span("infer.upload"):
+            img = torch.as_tensor(images_uint8_nhwc).to(dev).float() / 255.0
+        out = model(img, train=False, mode="infer")
+        with span("nms"):
+            det = postprocess_detections(
+                out["det_preds"], cfg.img_size, iou_thresh=nms_iou,
+                conf_thresh=conf_thresh, top_k=top_k,
+            )
+        inst = None
+        if instance_masks:
+            with span("masks"):
+                inst = compose_masks(out["seg_coeffs"], out["protos"], det,
+                                     crop=mask_crop, img_size=cfg.img_size)
     return InferResult(out, det, inst)
 
 

@@ -38,6 +38,7 @@ from ..core.anchors import make_anchors
 from ..core.boxes import box_cxcywh_to_xyxy, box_iou_matrix, dist2bbox
 from ..core.dfl import dfl_decode, dfl_targets
 from ..parallel import dist
+from ..utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -178,9 +179,10 @@ def multitask_loss(
         box_w = pos_f
         dfl_norm = avg_factor
     elif cfg.assigner == "tal":
-        positive, best_gt, norm_t, iou_at = _assign_tal(
-            iou.detach(), det_cls_logits.detach(), gt_cls, gt_valid, gt_xyxy, anchor_abs, cfg
-        )
+        with span("loss.assign"):
+            positive, best_gt, norm_t, iou_at = _assign_tal(
+                iou.detach(), det_cls_logits.detach(), gt_cls, gt_valid, gt_xyxy, anchor_abs,
+                cfg)
         pos_f = positive.float()
         matched_gt_cls = gt_cls.gather(1, best_gt)
         one_hot = F.one_hot(matched_gt_cls, cfg.nc_det).to(f32)

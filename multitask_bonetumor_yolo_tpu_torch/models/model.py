@@ -35,6 +35,7 @@ from .bifpn import BiFPN, BiFPNUnit
 from .common import BN_MOMENTUM_BODY, BN_MOMENTUM_FROZEN
 from .heads import DetectHead, DetectTowers, SegmentHead, decode_detections
 from ..ops.resize import resize_bilinear_nchw
+from ..utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,46 +105,50 @@ class MultitaskModel(nn.Module):
         if mode not in ("train", "infer"):
             raise ValueError(f"Unknown mode {mode!r}. Expected 'train' or 'infer'.")
         cfg = self.cfg
-        dt = cfg.compute_dtype
-        head_train = mode == "train"
-        nhwc = lambda t: t.permute(0, 2, 3, 1)  # noqa: E731  channels_last view
-        x = x.to(dt).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+        with span("model.forward"):
+            x = x.to(cfg.compute_dtype).permute(0, 3, 1, 2).contiguous(
+                memory_format=torch.channels_last)
+            with span("model.backbone"):
+                feats = list(self.backbone(x, train))
+            with span("model.neck"):
+                feats = self.neck(feats, train)
+            with span("model.heads"):
+                head_train = mode == "train"
+                nhwc = lambda t: t.permute(0, 2, 3, 1)  # noqa: E731  channels_last view
+                seg_det_raw, seg_coeffs, protos = self.segment(feats, head_train)
+                det_raw = seg_det_raw if cfg.single_head else self.detect(feats, head_train)
 
-        feats = self.neck(list(self.backbone(x, train)), train)
-        seg_det_raw, seg_coeffs, protos = self.segment(feats, head_train)
-        det_raw = seg_det_raw if cfg.single_head else self.detect(feats, head_train)
+                pooled = feats[2].float().mean(dim=(2, 3))
+                cls_logits = self.cls_fc(pooled)
+                seg_logits = resize_bilinear_nchw(
+                    self.seg_proto_projector(protos.float()), cfg.img_size, cfg.img_size
+                )
 
-        pooled = feats[2].float().mean(dim=(2, 3))
-        cls_logits = self.cls_fc(pooled)
-        seg_logits = resize_bilinear_nchw(
-            self.seg_proto_projector(protos.float()), cfg.img_size, cfg.img_size
-        )
-
-        det_feats = [nhwc(t) for t in det_raw]
-        out = {
-            "det_feats": det_feats,
-            "seg_coeffs": seg_coeffs,
-            "protos": nhwc(protos),
-            "seg_logits": nhwc(seg_logits),
-            "cls_logits": cls_logits,
-        }
-        if mode == "train":
-            return out
-        seg_preds_det = decode_detections(
-            [nhwc(t) for t in seg_det_raw], cfg.nc_det, cfg.img_size, cfg.reg_max
-        )
-        seg_preds = torch.cat([seg_preds_det, seg_coeffs.float()], dim=-1)
-        if cfg.single_head:
-            det_preds = seg_preds[..., : 4 + cfg.nc_det]
-        else:
-            det_preds = decode_detections(det_feats, cfg.nc_det, cfg.img_size, cfg.reg_max)
-        out.update(
-            det_preds=det_preds,
-            seg_preds=seg_preds,
-            cls_probs=torch.softmax(cls_logits, dim=-1),
-            seg_prob=nhwc(torch.sigmoid(seg_logits)),
-        )
-        return out
+                det_feats = [nhwc(t) for t in det_raw]
+                out = {
+                    "det_feats": det_feats,
+                    "seg_coeffs": seg_coeffs,
+                    "protos": nhwc(protos),
+                    "seg_logits": nhwc(seg_logits),
+                    "cls_logits": cls_logits,
+                }
+                if mode == "train":
+                    return out
+                seg_preds_det = decode_detections(
+                    [nhwc(t) for t in seg_det_raw], cfg.nc_det, cfg.img_size, cfg.reg_max
+                )
+                seg_preds = torch.cat([seg_preds_det, seg_coeffs.float()], dim=-1)
+                if cfg.single_head:
+                    det_preds = seg_preds[..., : 4 + cfg.nc_det]
+                else:
+                    det_preds = decode_detections(det_feats, cfg.nc_det, cfg.img_size, cfg.reg_max)
+                out.update(
+                    det_preds=det_preds,
+                    seg_preds=seg_preds,
+                    cls_probs=torch.softmax(cls_logits, dim=-1),
+                    seg_prob=nhwc(torch.sigmoid(seg_logits)),
+                )
+                return out
 
 
 # The standard deviation of a standard normal cut to [-2, 2]: Flax's

@@ -27,6 +27,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+from ...utils.profiling import count, span
+
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 
 
@@ -92,7 +94,9 @@ def build(name: str) -> tuple[Path, str]:
     os.close(fd)
     cmd = [find_nvcc(), *nvcc_flags(name), "-o", tmp, str(CSRC / f"{name}.cu")]
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+        with span("kernels.build"):
+            proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+        count("kernels.built")
         if proc.returncode != 0:
             raise RuntimeError(
                 f"nvcc failed ({proc.returncode}) for {name}.cu:\n"
@@ -123,4 +127,7 @@ def build_all() -> None:
 def load_library(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``; one handle per process."""
     path, _ = build(name)
-    return ctypes.CDLL(str(path))
+    with span("kernels.load"):
+        lib = ctypes.CDLL(str(path))
+    count("kernels.loaded")
+    return lib

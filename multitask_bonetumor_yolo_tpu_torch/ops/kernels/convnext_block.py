@@ -56,6 +56,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from ...utils.profiling import register_kernels
 from .build import load_library
 
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
@@ -398,3 +399,5 @@ def convnext_block(
 
 
 convnext_block.launches = 0
+register_kernels({"K1": convnext_block, "K1 saving": convnext_block_saving,
+                  "K1 first": convnext_block_v0})

@@ -64,6 +64,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from ...utils.profiling import register_kernels
 from .build import load_library
 from .convnext_block import (
     check_block_args, dt_copy, fold_block_params, kernel_operands,
@@ -395,6 +396,8 @@ def convnext_block_bwd_v1_v0(
 
 
 convnext_block_bwd_v1_v0.launches = 0
+register_kernels({"K2": convnext_block_bwd, "K4": convnext_block_bwd_v1,
+                  "K4 first": convnext_block_bwd_v1_v0})
 
 
 def convnext_block_bwd_explicit(

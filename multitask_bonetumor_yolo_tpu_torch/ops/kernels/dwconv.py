@@ -33,6 +33,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from ...utils.profiling import register_kernels
 from .build import load_library
 
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
@@ -233,3 +234,4 @@ def dwconv7_v0(x: torch.Tensor, taps: torch.Tensor,
 
 dwconv7.launches = 0
 dwconv7_v0.launches = 0
+register_kernels({"K3": dwconv7, "K3 first": dwconv7_v0})

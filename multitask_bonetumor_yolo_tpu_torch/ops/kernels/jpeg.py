@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from ...data import jpeg as codec
+from ...utils.profiling import register_kernels
 from .build import load_library
 
 
@@ -259,6 +260,7 @@ def jpeg_color(planes: torch.Tensor, lay: codec.Layout) -> torch.Tensor:
 _count_lock = threading.Lock()
 jpeg_idct.launches = 0
 jpeg_color.launches = 0
+register_kernels({"K6a": jpeg_idct, "K6b": jpeg_color})
 
 
 # ------------------------------------------------------------- card route

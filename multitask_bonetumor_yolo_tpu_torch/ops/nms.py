@@ -28,6 +28,7 @@ from typing import NamedTuple
 import torch
 
 from ..core.boxes import box_cxcywh_to_xyxy, box_iou_matrix
+from ..utils.profiling import count, span
 
 BLOCK = 128  # candidates per block of the suppression loop
 FIXED_POINT_CHECK = 4  # fixed-point iterations between convergence checks
@@ -58,7 +59,10 @@ def _greedy_keep(boxes: torch.Tensor, valid: torch.Tensor, iou_thresh: float) ->
             for _ in range(FIXED_POINT_CHECK):
                 prev = cur
                 cur = blk_valid & ~(tri & cur[:, :, None]).any(1)
-            if torch.equal(cur, prev):
+            count("nms.waits")
+            with span("nms.wait"):
+                converged = torch.equal(cur, prev)
+            if converged:
                 break
         keep[:, start:end] = cur
         if end < k:
@@ -84,7 +88,10 @@ def batched_nms(
     masked = torch.where(scores > conf_thresh, scores, -1.0)
     sorted_scores, order = torch.sort(masked, dim=1, descending=True, stable=True)
     cand_valid = sorted_scores > conf_thresh
-    k = int(cand_valid.sum(1).max())  # the one wait per call
+    count("nms.waits")
+    with span("nms.wait"):
+        k = int(cand_valid.sum(1).max())  # the one wait per call
+    count("nms.candidates", k)
     slot_idx = torch.full((b, top_k + 1), -1, dtype=torch.long, device=dev)
     if k > 0:
         order, cand_valid = order[:, :k], cand_valid[:, :k]

@@ -1,27 +1,17 @@
 """What the profiling tools share: the device flag, the launch counts of the
 hand-written kernels, and the rows they print.
 
-Each kernel's wrapper raises its own ``launches`` count by one where it
-launches the kernel on the card, and nowhere else (on a CPU tensor it runs
-the plain version and counts nothing). :func:`timed` times a call with
-:func:`..utils.timing.timeloop` and reads the counts around it, so that a row
-says which kernels its call launched, per call.
+:func:`timed` times a call with :func:`..utils.timing.timeloop` and reads the
+launch counts of the kernels of :data:`..utils.profiling.KERNELS` around it,
+so that a row says which kernels its call launched, per call.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..ops.kernels import convnext_block as cnb
-from ..ops.kernels import convnext_block_bwd as bwd
+from ..utils.profiling import launch_counts
 from ..utils.timing import timeloop
-
-KERNELS = {  # short name -> the wrapper that counts the kernel's launches
-    "K1": cnb.convnext_block,
-    "K1 saving": cnb.convnext_block_saving,
-    "K2": bwd.convnext_block_bwd,
-    "K4": bwd.convnext_block_bwd_v1,
-}
 
 
 def resolve_device(name: str) -> torch.device:
@@ -30,10 +20,6 @@ def resolve_device(name: str) -> torch.device:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass --device cpu to run the plain versions")
     return device
-
-
-def launch_counts() -> dict:
-    return {k: fn.launches for k, fn in KERNELS.items()}
 
 
 def timed(fn, iters: int, device: torch.device) -> tuple:
@@ -49,7 +35,8 @@ def timed(fn, iters: int, device: torch.device) -> tuple:
     before = launch_counts()
     ms = timeloop(counted, iters, device=device.type)
     after = launch_counts()
-    return ms, {k: (after[k] - before[k]) / calls[0] for k in KERNELS if after[k] != before[k]}
+    return ms, {k: (n - before.get(k, 0)) / calls[0] for k, n in after.items()
+               if n != before.get(k, 0)}
 
 
 class Rows:

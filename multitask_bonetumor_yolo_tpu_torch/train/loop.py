@@ -42,7 +42,7 @@ from ..metrics.segmentation import mask_map_inputs_from_counts
 from ..models import ModelConfig
 from ..parallel import create_mesh, dist, replicate, shard_batch
 from ..utils.logging import RunLogger
-from ..utils.profiling import PhaseTimer, annotate
+from ..utils.profiling import PhaseTimer
 from .checkpoint import CheckpointManager
 from .state import TrainConfig, TrainState, create_train_state, lr_at
 from .steps import make_eval_step, make_train_step
@@ -331,7 +331,7 @@ class Trainer:
                 if batch is None:
                     break
                 last_batch = batch
-                with timer.phase("train_step"), annotate("train_step"):
+                with timer.phase("train_step"):
                     self.state, metrics, aux = self.train_step(self.state, batch, self.generator)
                 global_step += 1
                 if global_step % cfg.log_every == 0:
@@ -358,7 +358,7 @@ class Trainer:
                         imgs = imgs / 255.0
                     self.logger.log_seg_examples(imgs, host["seg_prob"], host["mask"],
                                                  stage="train", step=global_step)
-            with timer.phase("validate"), annotate("validate"):
+            with timer.phase("validate"):
                 val = self.validate(epoch, global_step)
             map50 = val.get("map_iou50_map", -1.0)
             # save when the metric enters the top-K, on the 'last' cadence,

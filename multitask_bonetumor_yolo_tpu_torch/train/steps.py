@@ -33,6 +33,7 @@ from ..models import ModelConfig
 from ..models.heads import decode_detections
 from ..ops.nms import postprocess_detections
 from ..parallel import dist
+from ..utils.profiling import span
 from .state import TrainConfig, TrainState
 
 
@@ -50,29 +51,35 @@ def make_train_step(model_cfg: ModelConfig, loss_cfg: LossConfig,
                    generator: torch.Generator):
         if state.model.cfg != model_cfg:
             raise ValueError("train_step: the state's model was built from another ModelConfig")
-        batch = augment_batch(batch, generator, aug_cfg)
-        params = state.params()
-        bn_before = state.bn_snapshot()
-        out = state.model(batch["image"], train=True, mode="train")
-        lo = multitask_loss(out, batch, loss_cfg, train=True)
-        grads = torch.autograd.grad(lo.total, params, allow_unused=True)
-        losses = {"loss_total": lo.total, **{f"loss_{k}": v for k, v in lo.components.items()}}
-        if dist.active():
-            grads, losses = _sum_over_ranks(params, grads, losses)
-        grad_norm, ok = state.apply_gradients(grads, bn_before)
-        metrics = {
-            **losses,
-            "num_pos": lo.num_pos,
-            "avg_iou": lo.avg_iou,
-            "grad_norm": grad_norm,
-            "step_skipped": 1.0 - ok.float(),
-        }
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        aux = {
-            "cls_logits": out["cls_logits"].detach(),
-            "seg_prob": torch.sigmoid(out["seg_logits"].detach()),
-            "image": batch["image"],
-        }
+        with span("train_step"):
+            with span("augment"):
+                batch = augment_batch(batch, generator, aug_cfg)
+            params = state.params()
+            bn_before = state.bn_snapshot()
+            out = state.model(batch["image"], train=True, mode="train")
+            with span("loss"):
+                lo = multitask_loss(out, batch, loss_cfg, train=True)
+            with span("backward"):
+                grads = torch.autograd.grad(lo.total, params, allow_unused=True)
+            losses = {"loss_total": lo.total,
+                      **{f"loss_{k}": v for k, v in lo.components.items()}}
+            if dist.active():
+                grads, losses = _sum_over_ranks(params, grads, losses)
+            with span("optimizer"):
+                grad_norm, ok = state.apply_gradients(grads, bn_before)
+            metrics = {
+                **losses,
+                "num_pos": lo.num_pos,
+                "avg_iou": lo.avg_iou,
+                "grad_norm": grad_norm,
+                "step_skipped": 1.0 - ok.float(),
+            }
+            metrics = {k: v.detach() for k, v in metrics.items()}
+            aux = {
+                "cls_logits": out["cls_logits"].detach(),
+                "seg_prob": torch.sigmoid(out["seg_logits"].detach()),
+                "image": batch["image"],
+            }
         return state, metrics, aux
 
     return train_step
