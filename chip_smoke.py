@@ -10,7 +10,8 @@ is printed):
   2. build the kernels from ``csrc/``, one nvcc per source, all at once: the
      ConvNeXt-block forward (K1), the block backwards (K2 and K4, one
      source), the standalone depthwise 7x7 (K3), the JPEG decode (K6: its
-     host entropy decoder, K6a and K6b) and the kernel lab (K5, and its
+     host entropy decoder, K6a and K6b), eval BN + act + cast (K7) and the
+     kernel lab (K5, and its
      first design's lab, the "before");
      time the builds, print registers and spills, and the shared memory and
      CTAs per SM of K1's Hopper design and K2's Hopper row pass at each of
@@ -28,11 +29,13 @@ is printed):
      bf16) with seeded random weights, every parameter and BN statistic
      perturbed (``randomize``), serves 3 batches of 16 and 1 single image
      through ``infer_batch``; K1 must have launched exactly 18 times per
-     forward, outputs must be finite with the right shapes, and
+     forward and K7 (eval BN + act + cast) 110 times, outputs must be
+     finite with the right shapes, and
      ``cls_probs``, ``seg_prob`` and the pre-NMS ``det_preds`` (boxes in
      units of the image side) must agree with the same weights under
-     ``pallas="off"`` (atol/rtol 3e-2) and be no farther from the fp32 eager
-     model than 2x the bf16 eager path is. Random weights score no anchor
+     ``pallas="off"`` and on the eager BN chain, no K1 and no K7 (atol/rtol
+     3e-2), and be no farther from the fp32 eager model (no K1, no K7) than
+     2x the bf16 eager path is. Random weights score no anchor
      above the CLI's 0.25, so requests are served at the confidence that
      passes ~250 anchors per image, with NMS and instance masks; NMS at that
      confidence and over all 16 x 8400 anchors (conf 0) must keep on the
@@ -213,7 +216,9 @@ is printed):
      four stages, each maxdiff within the bf16 tolerance of |y|max, one K1
      launch per call), ``tools.profile_infer`` (batch 16; 15 K1 launches per
      full forward and per trunk or backbone call, 1 per stage-row call,
-     none in the neck, heads, decode, NMS or resize) and
+     none in the neck, heads, decode, NMS or resize; K7 110 per full
+     forward, 18 per backbone call, 59 per neck, 21 per Segment and 12 per
+     Detect head call) and
      ``tools.profile_train`` (batch 8; K1's saving form and K2 15 each per
      full step, per fwd+bwd and per backbone fwd+bwd, K1 15 per train-mode
      forward, and per stage-row call 1 of K1 under ``ref``, of K1 and K4
@@ -228,6 +233,18 @@ is printed):
      read; every train step launches K1's saving form and K2 15 times, every
      eval forward (the trainer's validation, ``cli.evaluate``'s and the
      diagnosis's) K1 15 times; the table's metrics finite ("[recipe]").
+ 20. "k7" (after "fwdbwd"): K7 (``csrc/bn_act.cu``) against the eager chain
+     (cuDNN's fp32 BN, the activation, the cast), both through the models'
+     route ``models/common.py::bn_act`` (the eager chain under autograd), at
+     the serving forward's P3 neck map (16x80x80x256; SiLU, ELU and none),
+     the Proto's cv2 on its four stacked phases (64x80x80x256), the P5
+     adapter's (16x20x20x256), the heads' channel slice (16x80x80, channels
+     [64, 320) of a 320-channel map) and a narrow map (16x80x80x64), bf16:
+     at most one bf16 step (no smaller than at 2^-12 of the map's largest
+     value) on at most 1 % of the elements; "[k7-time]": K7's device time (profiler) beside its byte
+     bound (4 bytes per element at 3.35 TB/s) and its share of it, with CUDA
+     events beside, and the eager chain's device time as ``library_ms``
+     (a NOTE where the P3 share is under 60 %).
 Each phase sets the launch counts to 0 right before the path it drives and
 reads them right after; the K3 and K4 launches of the kernels line are
 those of phase 12's pass over the trunk, K6a's and K6b's those of phase 17's
@@ -520,6 +537,38 @@ def set_pallas(model, value):
             m.pallas = value
 
 
+def detached(out):
+    if torch.is_tensor(out):
+        return out.detach()
+    if isinstance(out, (list, tuple)):
+        return type(out)(detached(t) for t in out)
+    if isinstance(out, dict):
+        return {k: detached(v) for k, v in out.items()}
+    return out
+
+
+def eager_chain(model, fn):
+    """``fn()``, a forward of ``model``, with every BN + act on the eager
+    chain (cuDNN's fp32 BN, the activation, the cast) rather than K7: under
+    autograd with the parameters requiring a gradient, which the route
+    (``models/common.py::bn_act``) leaves to the eager chain. Raises if K7
+    launched all the same; returns the outputs detached."""
+    from multitask_bonetumor_yolo_tpu_torch.ops.kernels import bn_act as k7
+
+    flags = [p.requires_grad for p in model.parameters()]
+    model.requires_grad_(True)
+    before = k7.bn_act.launches
+    try:
+        with torch.enable_grad():
+            out = detached(fn())
+    finally:
+        for p, f in zip(model.parameters(), flags):
+            p.requires_grad_(f)
+    if k7.bn_act.launches != before:
+        raise RuntimeError(f"the eager reference launched K7 {k7.bn_act.launches - before} times")
+    return out
+
+
 def check_outputs(out, b, cfg):
     a = sum((IMG // s) ** 2 for s in (8, 16, 32))
     want = {
@@ -541,6 +590,7 @@ def check_outputs(out, b, cfg):
 def phase_model(cnb, dev, gen):
     from multitask_bonetumor_yolo_tpu_torch.cli.infer import infer_batch
     from multitask_bonetumor_yolo_tpu_torch.models import ModelConfig, build_model
+    from multitask_bonetumor_yolo_tpu_torch.ops.kernels import bn_act as k7
     from multitask_bonetumor_yolo_tpu_torch.ops.nms import postprocess_detections
 
     cfg = ModelConfig(img_size=IMG, dtype="bfloat16", pallas="on")
@@ -559,6 +609,7 @@ def phase_model(cnb, dev, gen):
     torch.cuda.synchronize()
 
     cnb.convnext_block.launches = 0
+    k7.bn_act.launches = 0
     t0 = time.perf_counter()
     results = [infer_batch(model, r, **serve) for r in requests]
     torch.cuda.synchronize()
@@ -567,6 +618,10 @@ def phase_model(cnb, dev, gen):
     depth = sum(cfg.backbone_depths)
     if launches != depth * len(requests):
         raise RuntimeError(f"K1 launched {launches} times, want {depth} x {len(requests)}")
+    k7_launches = k7.bn_act.launches // len(requests)
+    if k7.bn_act.launches != K7_PER_FORWARD["v1"] * len(requests):
+        raise RuntimeError(f"K7 launched {k7.bn_act.launches} times, want "
+                           f"{K7_PER_FORWARD['v1']} x {len(requests)}")
     for r, res in zip(requests, results):
         check_outputs(res.outputs, r.shape[0], cfg)
         if res.detections.boxes.shape != (r.shape[0], 100, 4):
@@ -577,14 +632,16 @@ def phase_model(cnb, dev, gen):
             raise RuntimeError("an image kept no detection at the serving confidence")
     log(f"[serve] 3x{BATCH} + 1 requests (NMS + instance masks) in {serve_s:.3f} s "
         f"(first call included) at conf {conf:.4g}; K1 launches {launches} = {depth} per "
-        f"forward; detections kept per image (first batch): "
+        f"forward, K7 {k7_launches} per forward; detections kept per image (first batch): "
         f"{results[0].detections.valid.sum(1).tolist()}")
 
-    # the same weights with the eager blocks, in bf16 and in fp32 (TF32 off)
+    # the same weights with the eager blocks and the eager BN chain (no K1,
+    # no K7), in bf16 and in fp32 (TF32 off)
     set_pallas(model, "off")
-    off = infer_batch(model, requests[0]).outputs
+    img = requests[0].float() / 255.0
+    off = eager_chain(model, lambda: model(img, train=False, mode="infer"))
     model.cfg = dataclasses.replace(cfg, dtype="float32")
-    ref32 = infer_batch(model, requests[0]).outputs
+    ref32 = eager_chain(model, lambda: model(img, train=False, mode="infer"))
     model.cfg = cfg
     scale = torch.tensor([IMG] * 4 + [1] * cfg.nc_det, device=dev)
 
@@ -594,15 +651,15 @@ def phase_model(cnb, dev, gen):
     on, off, ref32 = unit_boxes(results[0].outputs), unit_boxes(off), unit_boxes(ref32)
     for k in ("cls_probs", "seg_prob", "det_preds"):
         err = check_close(f"model {k} on vs off", on[k], off[k], BF16_TOL)
-        # K1 adds no error beyond bf16 rounding: against the fp32 eager
-        # model, the kernel path may be at most 2x as far as the bf16 eager
-        # path (plus 1e-3 of the output's scale). Dropping the blocks' MLP
+        # K1 and K7 add no error beyond bf16 rounding: against the fp32
+        # eager model, the kernel path may be at most 2x as far as the bf16
+        # eager path (plus 1e-3 of the output's scale). Dropping the blocks' MLP
         # breaks this by ~10x; the 3e-2 on/off bound alone would not see it.
         e_on = (on[k].float() - ref32[k]).abs().max().item()
         e_off = (off[k].float() - ref32[k]).abs().max().item()
         bound = 2.0 * e_off + 1e-3 * ref32[k].abs().max().item()
         if e_on > bound:
-            raise RuntimeError(f"model {k}: K1 path {e_on:.3e} from fp32, eager bf16 "
+            raise RuntimeError(f"model {k}: kernel path {e_on:.3e} from fp32, eager bf16 "
                                f"{e_off:.3e}, bound {bound:.3e}")
         log(f"[model] {k}: on vs off max_abs_err {err:.3e} (atol/rtol {BF16_TOL}); "
             f"vs fp32 eager: on {e_on:.3e}, off {e_off:.3e} (bound {bound:.3e})")
@@ -666,7 +723,7 @@ def phase_model(cnb, dev, gen):
         log(f"[model-time] NOTE: the forward under auto ({mean['auto']:.3f} ms) is slower "
             f"than under on ({mean['on']:.3f} ms)")
     set_pallas(model, "on")
-    return launches, model, conf
+    return (launches, k7_launches), model, conf
 
 
 def phase_infer_cli(cnb, model, conf, dev, gen):
@@ -880,18 +937,18 @@ def phase_eval(cnb, model, dev, card):
     err_preds = check_close("[eval] det_preds auto vs off", p_auto / scale, p_off / scale,
                             BF16_TOL)
     # the seg probabilities: K1 adds no error beyond bf16 rounding, as in
-    # phase 4: against the fp32 eager eval forward, the kernel path may be
-    # at most 2x as far as the bf16 eager path (plus 1e-3). The head BNs
+    # phase 4: against the fp32 eager eval forward (no K1, no K7), the
+    # kernel path may be at most 2x as far as the bf16 eager path (plus
+    # 1e-3); both bf16 eval steps run K7 on the body's BNs. The head BNs
     # normalise with this batch's statistics, which amplifies the bf16
     # rounding of both paths: with random weights on an H100 the two paths
     # came 6.2e-2 apart, where phase 4's inference forward stays within 3e-2.
-    with torch.inference_mode():
-        model.cfg = dataclasses.replace(cfg, dtype="float32")
-        snap = state.bn_snapshot()
-        ref32 = torch.sigmoid(model(batch["image"].float() / 255.0, train=False,
-                                    mode="train")["seg_logits"])
-        state.bn_restore(snap)
-        model.cfg = cfg
+    model.cfg = dataclasses.replace(cfg, dtype="float32")
+    snap = state.bn_snapshot()
+    ref32 = torch.sigmoid(eager_chain(model, lambda: model(
+        batch["image"].float() / 255.0, train=False, mode="train"))["seg_logits"])
+    state.bn_restore(snap)
+    model.cfg = cfg
     e_auto = (a_auto["seg_prob"] - ref32).abs().max().item()
     e_off = (a_off["seg_prob"] - ref32).abs().max().item()
     err_prob = (a_auto["seg_prob"] - a_off["seg_prob"]).abs().max().item()
@@ -1965,9 +2022,15 @@ def phase_tools(card):
     secs["profile_infer"] = time.perf_counter() - t0
     k1 = {"FULL multitask infer (model+decode+NMS)": 15, "TRUNK total": 15,
           "BACKBONE (trunk + 3 C2f adapters)": 15}
+    k7 = {"FULL multitask infer (model+decode+NMS)": K7_PER_FORWARD["v1"],
+          "BACKBONE (trunk + 3 C2f adapters)": 18, "BiFPN x2": 59, "Segment head": 21,
+          "Detect head": 12}
     for row in rows:
         n = k1.get(row["name"], 1 if row["name"].startswith("stage") else 0)
-        check_launches(f"profile_infer {row['name']}", row["launches"], {"K1": n} if n else {})
+        want = {"K1": n} if n else {}
+        if row["name"] in k7:
+            want["K7"] = k7[row["name"]]
+        check_launches(f"profile_infer {row['name']}", row["launches"], want)
     full = rows[0]
     if not 0 < full["device_ms"] <= full["ms"] * 1.5:
         raise RuntimeError(f"[tools] profile_infer: FULL device time {full['device_ms']} ms "
@@ -3154,6 +3217,104 @@ def path_totals(per_stage, per_block, keys):
     return {**out, "bound_ms": b_ms, "bound_by": b_by}
 
 
+# K7 at the serving forward's shapes (B, C, H, W), bf16, with the channels of
+# the map it reads (C, or a channel slice [offset, offset + C) of a wider
+# map): the P3 neck map, the Proto's cv2 on its four phases stacked on the
+# batch axis, the P5 adapter's, the heads' fused first conv's slice (offset
+# 64 of 320 channels), and a narrow map (C = 64)
+K7_SHAPES = (("P3 neck", (16, 256, 80, 80), None), ("Proto cv2 phases", (64, 256, 80, 80), None),
+             ("P5 adapter", (16, 256, 20, 20), None),
+             ("head slice", (16, 256, 80, 80), (64, 320)), ("C 64", (16, 64, 80, 80), None))
+K7_PER_FORWARD = {"v1": 110, "v2": 98}  # eval BN + act calls of the serving forward
+K7_MIN_ROOFLINE = 60.0  # % of the byte bound K7 should reach at the P3 neck shape
+
+
+def bf16_steps(got, want):
+    """|got - want| in bf16 steps of ``want``, a step taken no smaller than
+    at 2^-12 of ``want``'s largest magnitude: near a zero crossing the
+    chain's fp32 rounding moves the value by many steps of its own tiny
+    size, whichever side rounds."""
+    floor = want.float().abs().max() * 2.0 ** -12
+    _, e = torch.frexp(torch.maximum(want.float().abs(), floor))
+    return (got.float() - want.float()).abs() / torch.ldexp(torch.ones_like(want.float()), e - 8)
+
+
+def route_bn_act(x, m, act, eager):
+    """The models' route (``models/common.py::bn_act``) on ``x`` with the
+    eval BN ``m``: K7 with no gradient wanted, the eager chain (cuDNN's
+    fp32 BN, the activation, the cast) under autograd, ``m``'s parameters
+    requiring a gradient."""
+    from multitask_bonetumor_yolo_tpu_torch.models import common
+
+    with torch.enable_grad() if eager else torch.no_grad():
+        return common.bn_act(x, m, False, act).detach()
+
+
+def phase_k7(dev, gen, card):
+    """K7 against the eager chain, both through the models' route
+    (:func:`route_bn_act`), at :data:`K7_SHAPES` (SiLU, then ELU and none
+    at the P3 shape): at most 1 bf16 step (:func:`bf16_steps`) on at most
+    1 % of the elements, one K7 launch per call and none on the eager
+    chain; then "[k7-time]": K7's device time (profiler) beside its byte
+    bound (2 + 2 bytes per element at the card's rate), its events time,
+    and the eager chain's device and events times (``library_ms``).
+    Returns the rows."""
+    import torch.nn as nn
+
+    from multitask_bonetumor_yolo_tpu_torch.ops.kernels import bn_act as k7
+
+    rows = []
+    for name, (b, c, h, w), cut in K7_SHAPES:
+        off, total = cut or (0, c)
+        full = (torch.randn(b, total, h, w, generator=gen, device=dev) * 2).to(torch.bfloat16)
+        x = full.contiguous(memory_format=torch.channels_last)[:, off:off + c]
+        m = nn.BatchNorm2d(c, eps=1e-3).to(dev).eval()
+        with torch.no_grad():
+            m.running_mean.copy_(torch.randn(c, generator=gen, device=dev) * 0.5)
+            m.running_var.copy_(torch.rand(c, generator=gen, device=dev) * 1.8 + 0.2)
+            m.weight.copy_(1.0 + 0.3 * torch.randn(c, generator=gen, device=dev))
+            m.bias.copy_(0.3 * torch.randn(c, generator=gen, device=dev))
+        for act in ("silu", "elu", "none") if name == "P3 neck" else ("silu",):
+            before = k7.bn_act.launches
+            got = route_bn_act(x, m, act, eager=False)
+            want = route_bn_act(x, m, act, eager=True)
+            if k7.bn_act.launches != before + 1:
+                raise RuntimeError(f"[k7] {name} {act}: {k7.bn_act.launches - before} K7 "
+                                   f"launches for one call on K7 and one on the eager chain")
+            worst = bf16_steps(got, want).max().item()
+            share = (got != want).float().mean().item()
+            if worst > 1 or share > 0.01:
+                raise RuntimeError(f"[k7] {name} {act}: {worst} bf16 steps from the eager "
+                                   f"chain on {share:.3%} of the elements")
+            log(f"[k7] {name} {(b, h, w, c)} of {total} channels from {off}, {act}: at most "
+                f"{worst} bf16 step from the eager chain, on {share:.4%} of the elements")
+        n = x.numel()
+        bound_ms = 4 * n / PEAK_BYTES * 1e3
+
+        def fast():
+            return route_bn_act(x, m, "silu", eager=False)
+
+        def slow():
+            return route_bn_act(x, m, "silu", eager=True)
+
+        ms = device_ms(fast, key="bn_act_kernel")
+        lib_ms = device_ms(slow)
+        ev = [cuda_ms(fast), cuda_ms(slow), cuda_ms(slow), cuda_ms(fast)]
+        row = {"shape": [b, h, w, c], "name": name, "channels_of": total, "offset": off,
+               "elements": n, "ms": ms, "bound_ms": bound_ms, "bound_by": "bytes",
+               "roofline_pct": 100 * bound_ms / ms, "events_ms": (ev[0] + ev[3]) / 2,
+               "library_ms": lib_ms, "library_events_ms": (ev[1] + ev[2]) / 2,
+               "speedup": lib_ms / ms}
+        rows.append(row)
+        log("[k7-time] " + json.dumps(row))
+    p3 = rows[0]["roofline_pct"]
+    if p3 < K7_MIN_ROOFLINE:
+        log(f"[k7-time] NOTE: K7 at the P3 neck shape reaches {p3:.1f} % of its byte bound, "
+            f"under {K7_MIN_ROOFLINE:.0f} %")
+    log(f"[k7-time] {card}")
+    return rows
+
+
 def timed_build(name):
     from multitask_bonetumor_yolo_tpu_torch.ops.kernels import build
 
@@ -3163,7 +3324,7 @@ def timed_build(name):
 
 
 PHASES = ("kernel", "model", "infer-cli", "eval", "trainer", "ddp", "raw", "tools", "recipe", "k2",
-          "k2-split", "train", "k3", "k4", "k4-split", "fwdbwd", "lab")
+          "k2-split", "train", "k3", "k4", "k4-split", "fwdbwd", "k7", "lab")
 
 
 def main(argv=None) -> int:
@@ -3189,10 +3350,10 @@ def main(argv=None) -> int:
     card = card_line()
     log(f"[card] {card}; torch {torch.__version__} cuda {torch.version.cuda}")
     dev = torch.device("cuda", 0)
-    names = ("convnext_block", "convnext_block_bwd", "dwconv", "jpeg", "kernel_lab",
+    names = ("convnext_block", "convnext_block_bwd", "dwconv", "jpeg", "bn_act", "kernel_lab",
              "kernel_lab_v0")
     if only and "lab" not in only:
-        names = names[:4]
+        names = names[:5]
     with ThreadPoolExecutor(len(names)) as ex:
         builds = dict(zip(names, ex.map(timed_build, names)))
     for name, (path, report, secs) in builds.items():
@@ -3245,6 +3406,7 @@ def main(argv=None) -> int:
         ("k4", lambda: phase_bwd_v1(cnb, k2, dev, gen)),
         ("k4-split", lambda: phase_k4_split(k2, dev, gen)),
         ("fwdbwd", lambda: phase_block_fwdbwd(cnb, k2, k3, dev, gen)),
+        ("k7", lambda: phase_k7(dev, gen, card)),
         ("lab", lambda: phase_lab(cnb, dev)),
     )
     assert tuple(name for name, _ in table) == PHASES
@@ -3259,7 +3421,7 @@ def main(argv=None) -> int:
         return 0
 
     max_err, per_stage, k_ms, p_ms = r["kernel"]
-    launches = r["model"][0]
+    launches, k7_launches = r["model"][0]
     eval_launches = r["eval"]
     trainer_launches, _ = r["trainer"]
     ddp_launches = r["ddp"]
@@ -3272,6 +3434,7 @@ def main(argv=None) -> int:
     k4_split = r["k4-split"]
     fb_launches, fb_table, fb_totals, fb_grad_err = r["fwdbwd"]
     lab_entry = r["lab"]
+    k7_rows = r["k7"]
 
     infer_bound = depth_sum([k1_bound(BATCH, s, s, c) for c, s, _ in STAGES], STAGES)
     common = {"route": "cuda", "library_ms": None}
@@ -3330,6 +3493,11 @@ def main(argv=None) -> int:
          "source": "multitask_bonetumor_yolo_tpu_torch/csrc/kernel_lab.cu",
          "replaces": "scripts/kernel_lab.py:37", **lab_entry},
         *k6_entries,
+        {"name": "bn_act", "route": "cuda",
+         "source": "multitask_bonetumor_yolo_tpu_torch/csrc/bn_act.cu",
+         "replaces": None, "launches": k7_launches, "ms": k7_rows[0]["ms"],
+         "bound_ms": k7_rows[0]["bound_ms"], "bound_by": "bytes",
+         "library_ms": k7_rows[0]["library_ms"], "per_shape": k7_rows},
     ]}))
     log("[block-fwdbwd] " + json.dumps({"per_stage": fb_table, "trunk_ms": fb_totals,
                                          "launches (K1, K1 saving, K2, K4, K3)": fb_launches,

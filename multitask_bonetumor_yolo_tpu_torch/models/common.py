@@ -10,6 +10,9 @@ Every BatchNorm runs in fp32 on the compute-dtype conv output, and its result
 the batch statistics (biased variance) and moves the running statistics as
 Flax does, in place: running = m * running + (1 - m) * batch, with the Flax
 momentum m (the keep factor; the module's torch ``momentum`` holds 1 - m).
+:func:`bn_act` runs that chain; where the BN reads the running statistics
+of a CUDA tensor and no gradient is wanted, as one launch of kernel K7
+(``ops/kernels/bn_act.py``).
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.kernels import bn_act as k7
 from ..parallel import dist
 
 # Flax-convention momenta (keep factors), as in the JAX package's models/common.py
@@ -95,6 +99,19 @@ def _act(x: torch.Tensor, act: str) -> torch.Tensor:
     raise ValueError(f"unknown act {act!r}")
 
 
+def bn_act(x: torch.Tensor, bn: nn.BatchNorm2d, train: bool, act: str) -> torch.Tensor:
+    """``act(batch_norm_fp32(x, bn, train))`` cast back to ``x``'s dtype.
+    One launch of K7 for ``x`` on the card, the BN on its running statistics
+    (``train=False``) and no gradient wanted (grad mode off, or neither
+    ``x`` nor the BN's parameters requiring one); K7 raises on a layout or
+    dtype it does not take. Otherwise (CPU, training, autograd) the eager
+    chain."""
+    if x.is_cuda and not train and not (torch.is_grad_enabled() and (
+            x.requires_grad or bn.weight.requires_grad or bn.bias.requires_grad)):
+        return k7.bn_act(x, bn.running_mean, bn.running_var, bn.weight, bn.bias, bn.eps, act)
+    return _act(batch_norm_fp32(x, bn, train), act).to(x.dtype)
+
+
 def _bn(features: int, eps: float, momentum: float) -> nn.BatchNorm2d:
     """A BatchNorm2d holding the Flax momentum ``momentum`` in torch's form."""
     return nn.BatchNorm2d(features, eps=eps, momentum=1.0 - momentum)
@@ -119,8 +136,7 @@ class ConvBN(nn.Module):
         act run."""
         if conv_input:
             x = conv2d(x, self.Conv_0)
-        dt = x.dtype
-        return _act(batch_norm_fp32(x, self.BatchNorm_0, train), self.act).to(dt)
+        return bn_act(x, self.BatchNorm_0, train, self.act)
 
 
 class ConvBlock(nn.Module):
@@ -153,13 +169,12 @@ class DepthwiseConvBlock(nn.Module):
         self.fold = kernel_size == 1 and strides == 1 and features == cin
 
     def forward(self, x, train: bool = False):
-        dt = x.dtype
         if self.fold:
             folded = self.Conv_1.weight * self.Conv_0.weight[:, 0, 0, 0][None, :, None, None]
             x = conv2d(x, self.Conv_1, folded)
         else:
             x = conv2d(conv2d(x, self.Conv_0), self.Conv_1)
-        return F.elu(batch_norm_fp32(x, self.BatchNorm_0, train)).to(dt)
+        return bn_act(x, self.BatchNorm_0, train, "elu")
 
 
 class Bottleneck(nn.Module):

@@ -2,7 +2,8 @@
 
 One library per ``csrc/<name>.cu``: ``convnext_block`` (K1), ``convnext_block_bwd``
 (K2, K4), ``dwconv`` (K3), ``jpeg`` (K6 and its host entropy decoder),
-``kernel_lab`` and ``kernel_lab_v0`` (K5). Each has a plain C interface. It is compiled with
+``bn_act`` (K7), ``kernel_lab`` and ``kernel_lab_v0`` (K5). Each has a plain
+C interface. It is compiled with
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -o build/kernels/<name>-<hash>.so csrc/<name>.cu
@@ -110,7 +111,7 @@ def build(name: str) -> tuple[Path, str]:
 
 
 # the libraries the entry points' paths load (the kernel labs are tools')
-PATH_LIBRARIES = ("convnext_block", "convnext_block_bwd", "dwconv", "jpeg")
+PATH_LIBRARIES = ("convnext_block", "convnext_block_bwd", "dwconv", "jpeg", "bn_act")
 
 
 def build_all() -> None:
