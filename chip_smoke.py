@@ -245,6 +245,23 @@ is printed):
      bound (4 bytes per element at 3.35 TB/s) and its share of it, with CUDA
      events beside, and the eager chain's device time as ``library_ms``
      (a NOTE where the P3 share is under 60 %).
+ 21. "base": ConvNeXt-Base's widths. At its kernel stages (C = 128 / 256 /
+     512 at 160^2 / 80^2 / 40^2: the CP = 192 and 384 instantiations with
+     the channels past C zero, and C = 512's own) K1 at batch 16 against its
+     twin with phase 3's bf16 checks, K1's saving form and K2 at batch 32
+     (the benchmark's Base training batch) against theirs with phase 6's,
+     two K2 calls equal bit for bit; "[base-time]": each beside the eager
+     block (K1 against its forward, K2 against its autograd backward, the
+     fused forward + backward against eager autograd's, CUDA events in
+     turns), its bound, and the MiB each route holds for the backward. Then
+     the v1 model at Base's widths and depths (3/3/27/3, bf16, 640^2,
+     ``randomize``'s weights) under "auto" with the tracer on: one batch-16
+     ``infer_batch`` launches K1 33 times, one batch-32 train step K1's
+     saving form and K2 33 times each and K1 never, both roots count 33
+     blocks on the kernel route and 3 eager (``trunk.blocks.*``), the step
+     finite and not skipped ("[base-model]"). In a full run the three
+     kernels' entries of the kernels line carry these rows as
+     ``base_widths``.
 Each phase sets the launch counts to 0 right before the path it drives and
 reads them right after; the K3 and K4 launches of the kernels line are
 those of phase 12's pass over the trunk, K6a's and K6b's those of phase 17's
@@ -274,6 +291,8 @@ IMG = 640
 BATCH = 16
 TRAIN_BATCH = 8
 STAGES = ((96, 160, 3), (192, 80, 3), (384, 40, 9), (768, 20, 3))  # C, H=W, depth
+BASE_STAGES = ((128, 160, 3), (256, 80, 3), (512, 40, 27), (1024, 20, 3))  # ConvNeXt-Base
+BASE_TRAIN_BATCH = 32  # the batch the benchmark trains ConvNeXt-Base at
 # H100 SXM datasheet peaks (dense): bf16 tensor cores, TF32 tensor cores,
 # fp32 outside the tensor cores, device memory
 PEAK_BF16, PEAK_TF32, PEAK_FP32, PEAK_BYTES = 989e12, 495e12, 67e12, 3.35e12
@@ -372,6 +391,13 @@ def depth_sum(per_stage, stages):
         total += d * ms
         by_ms[by] += d * ms
     return total, max(by_ms, key=by_ms.get)
+
+
+def auto_blocks(cnb, stages=STAGES):
+    """Blocks of a trunk of ``stages`` that run the kernels under "auto" (K1
+    in a served forward, K1's saving form and K2 in a train step): those up
+    to the route's ceiling, the widest C of the Hopper designs."""
+    return sum(d for c, _, d in stages if c <= cnb.HOPPER_MAX_CHANNELS)
 
 
 def k1_bound(b, h, w, c, saving=False):
@@ -686,7 +712,7 @@ def phase_model(cnb, dev, gen):
 
     # "auto": K1 on stages 0-2, the eager block at C = 768 (15 launches)
     set_pallas(model, "auto")
-    auto_want = sum(d for c, _, d in STAGES if c <= 384)
+    auto_want = auto_blocks(cnb)
     cnb.convnext_block.launches = 0
     auto_out = infer_batch(model, requests[0], **serve).outputs
     torch.cuda.synchronize()
@@ -775,7 +801,7 @@ def phase_infer_cli(cnb, model, conf, dev, gen):
         if not same or n == 0:
             raise RuntimeError(f"[infer-cli] {path}: main's record ({rec['num_detections']} "
                                f"detections) differs from infer_batch's ({n})")
-    want = len(paths) * sum(d for c, _, d in STAGES if c <= 384)
+    want = len(paths) * auto_blocks(cnb)
     if cli_launches != want:
         raise RuntimeError(f"[infer-cli] main launched K1 {cli_launches} times, want {want}")
     names = ", ".join(Path(p).name for p in paths)
@@ -2886,10 +2912,15 @@ def phase_lab(cnb, dev):
     before_names = list(dict.fromkeys(six + list(LAB_SPLIT)))
     shapes = [(BATCH, s, s, c) for c, s, _ in STAGES] + [(2, 13, 21, 48)]
     max_err = 0.0
+    # the lab cuts K1's Hopper design where K1 runs it, up to its own
+    # narrower ceiling (Tiny's widths): at C = 512 K1 runs it, the lab does not
+    for c in (48, 96, 192, 384, 512, 768):
+        want = cnb.forward_route(torch.bfloat16, c) and c <= lab.HOPPER_MAX_CHANNELS
+        if lab.hopper_route(c) != want:
+            raise RuntimeError(f"[lab] C={c}: the lab's route is {lab.hopper_route(c)}, want "
+                               f"{want} (K1's route up to {lab.HOPPER_MAX_CHANNELS})")
     for shape in shapes:
         c = shape[-1]
-        if lab.hopper_route(c) != cnb.forward_route(torch.bfloat16, c):
-            raise RuntimeError(f"[lab] C={c}: the lab's route differs from K1's")
         for v0 in (False, True):
             if lab.k1_tile(c, v0)[0] != lab.k1_tile_pixels(c, v0):
                 raise RuntimeError(f"[lab] C={c}{' v0' if v0 else ''}: K1's tile "
@@ -3103,7 +3134,7 @@ def phase_train(cnb, k2, dev, gen):
     batch = synthetic_batch(TRAIN_BATCH, IMG, gen)
     counts = (cnb.convnext_block, cnb.convnext_block_saving, k2.convnext_block_bwd)
     blocks = sum(cfg.backbone_depths)
-    kernel_blocks = sum(d for (c, _, d) in STAGES if c <= 384)
+    kernel_blocks = auto_blocks(cnb)
     launches = {}
     for policy, n_steps, want in (("auto", 3, kernel_blocks), ("fused", 1, blocks)):
         set_block_bwd(model, policy)
@@ -3315,6 +3346,186 @@ def phase_k7(dev, gen, card):
     return rows
 
 
+def saved_mib(fn):
+    """MiB that the autograd graph of ``fn()``'s output holds for its
+    backward: the memory allocated while the output lives, less before."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    held = (torch.cuda.memory_allocated() - before) / 2**20
+    del out
+    return held
+
+
+def phase_base(cnb, k2, dev, gen):
+    """ConvNeXt-Base's widths (phase 21): K1 at batch 16, K1's saving form
+    and K2 at batch 32 against their plain twins at the stage shapes of
+    Base's kernel stages, timed beside the eager block, with their bounds
+    ("[base-time]"); then the v1 model at Base's widths, served and trained
+    under "auto", its launches and trunk counters per call ("[base-model]").
+    Returns the rows, the launch counts and the largest errors."""
+    from multitask_bonetumor_yolo_tpu_torch.cli.infer import infer_batch
+    from multitask_bonetumor_yolo_tpu_torch.data.synthetic import synthetic_batch
+    from multitask_bonetumor_yolo_tpu_torch.losses import LossConfig
+    from multitask_bonetumor_yolo_tpu_torch.models import ModelConfig, build_model
+    from multitask_bonetumor_yolo_tpu_torch.train import (
+        TrainConfig, create_train_state, make_train_step,
+    )
+    from multitask_bonetumor_yolo_tpu_torch.utils import profiling
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rows, errs = [], {"k1": 0.0, "saving": 0.0, "dx": 0.0, "grad_of_scale": 0.0}
+    for c, s, depth in BASE_STAGES:
+        if c > cnb.HOPPER_MAX_CHANNELS:
+            continue  # C = 1024: eager under "auto", no kernel takes it
+        with torch.no_grad():
+            shape = (BATCH, s, s, c)
+            args = block_args(gen, *shape, torch.bfloat16, dev)
+            got = cnb.convnext_block(*args)
+            want, want_y = cnb.convnext_block_plain_saving(*args)
+            err = check_close(f"[base] K1 {shape}", got, want, BF16_TOL)
+            errs["k1"] = max(errs["k1"], err,
+                             check_k1_designs(cnb, args, got, want, want_y, shape))
+            del got, want, want_y
+            # turns: routed, eager, eager, routed
+            t = [cuda_ms(lambda: cnb.convnext_block(*args)),
+                 cuda_ms(lambda: cnb.convnext_block_ref(*args))]
+            t = [(t[0] + cuda_ms(lambda: cnb.convnext_block(*args))) / 2,
+                 (t[1] + cuda_ms(lambda: cnb.convnext_block_ref(*args))) / 2]
+            row = {"c": c, "hw": s, "depth": depth, "k1": {
+                "shape": list(shape), "ms": t[0], "eager_ms": t[1], "max_abs_err": err}}
+            row["k1"]["bound_ms"], row["k1"]["bound_by"] = k1_bound(*shape)
+            del args
+
+            shape = (BASE_TRAIN_BATCH, s, s, c)
+            x, *params = block_args(gen, *shape, torch.bfloat16, dev)
+            ops = cnb.kernel_operands(params, x.dtype, backward=True)
+            out, y = cnb.convnext_block_saving(x, *params, ops=ops)
+            want_out, want_y = cnb.convnext_block_plain_saving(x, *params)
+            g = torch.randn(shape, generator=gen, device=dev).to(x.dtype)
+            got = k2.convnext_block_bwd(x, y, g, *params, ops=ops)
+            again = k2.convnext_block_bwd(x, y, g, *params, ops=ops)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise RuntimeError(f"[base] K2 {shape}: two calls differ (want bit for bit)")
+            del again
+            want = k2.convnext_block_bwd_plain(x, y, g, *params)
+            e_sav = max(check_close(f"[base] K1 saving {shape} out", out, want_out, BF16_TOL),
+                        check_close(f"[base] K1 saving {shape} y", y, want_y, BF16_TOL))
+            e_dx, e_sc = check_grads(f"[base] K2 {shape}", got, want, BF16_TOL)
+            errs["saving"] = max(errs["saving"], e_sav)
+            errs["dx"], errs["grad_of_scale"] = max(errs["dx"], e_dx), max(errs["grad_of_scale"],
+                                                                           e_sc)
+            del out, want_out, want_y, got, want
+            t_sav = cuda_ms(lambda: cnb.convnext_block_saving(x, *params, ops=ops))
+            t_k2 = cuda_ms(lambda: k2.convnext_block_bwd(x, y, g, *params, ops=ops), iters=10)
+            t_fwd = cuda_ms(lambda: cnb.convnext_block_ref(x, *params))
+        leaves = [t_.detach().requires_grad_() for t_ in (x, *params)]
+        ref_out = cnb.convnext_block_ref(*leaves)
+        t_bwd = cuda_ms(lambda: torch.autograd.grad(ref_out, leaves, g, retain_graph=True),
+                        iters=10)
+        del ref_out
+
+        def fused():
+            torch.autograd.grad(cnb.convnext_block(*leaves, bwd="fused"), leaves, g)
+
+        def eager():
+            torch.autograd.grad(cnb.convnext_block_ref(*leaves), leaves, g)
+
+        # turns: fused, eager, eager, fused
+        t_fused, t_eager = cuda_ms(fused, iters=10), cuda_ms(eager, iters=10)
+        t_eager, t_fused = (t_eager + cuda_ms(eager, iters=10)) / 2, \
+            (t_fused + cuda_ms(fused, iters=10)) / 2
+        row["saving"] = {"shape": list(shape), "ms": t_sav, "eager_fwd_ms": t_fwd,
+                         "max_abs_err": e_sav}
+        row["saving"]["bound_ms"], row["saving"]["bound_by"] = k1_bound(*shape, saving=True)
+        row["k2"] = {"shape": list(shape), "ms": t_k2, "eager_bwd_ms": t_bwd,
+                     "max_abs_err_dx": e_dx, "grad_err_of_scale": e_sc}
+        row["k2"]["bound_ms"], row["k2"]["bound_by"] = k2_bound(*shape)
+        row["fwd_bwd"] = {"fused_ms": t_fused, "eager_ms": t_eager,
+                          "fused_saved_mib": saved_mib(lambda: cnb.convnext_block(
+                              *leaves, bwd="fused")),
+                          "eager_saved_mib": saved_mib(lambda: cnb.convnext_block_ref(*leaves))}
+        rows.append(row)
+        del x, params, leaves, ops, y, g
+        torch.cuda.empty_cache()
+        k1r, sr, k2r, fb = row["k1"], row["saving"], row["k2"], row["fwd_bwd"]
+        log(f"[base-time] C={c} {s}x{s}: K1 batch {BATCH} {k1r['ms']:.4f} ms against the eager "
+            f"block's {k1r['eager_ms']:.4f} (bound {k1r['bound_ms']:.4f}, {k1r['bound_by']}); "
+            f"batch {BASE_TRAIN_BATCH}: K1 saving {sr['ms']:.4f} ms (bound {sr['bound_ms']:.4f}), "
+            f"K2 {k2r['ms']:.4f} ms (bound {k2r['bound_ms']:.4f}) against eager forward "
+            f"{t_fwd:.4f} and autograd backward {t_bwd:.4f}; forward + backward fused "
+            f"{fb['fused_ms']:.4f} against eager {fb['eager_ms']:.4f} ms, holding "
+            f"{fb['fused_saved_mib']:.0f} against {fb['eager_saved_mib']:.0f} MiB for the "
+            f"backward; errors K1 {k1r['max_abs_err']:.3e}, saving {e_sav:.3e}, K2 dx "
+            f"{e_dx:.3e}, gradients {e_sc:.3e} of scale (tol {BF16_TOL})")
+
+    # the model at Base's widths through its normal path, the tracer on
+    cfg = ModelConfig(img_size=IMG, dtype="bfloat16",
+                      backbone_depths=tuple(d for _, _, d in BASE_STAGES),
+                      backbone_dims=tuple(c for c, _, _ in BASE_STAGES))
+    want_k = auto_blocks(cnb, BASE_STAGES)
+    want_e = sum(cfg.backbone_depths) - want_k
+    model = build_model(cfg, seed=SEED, device=dev)
+    randomize(model, gen)
+    request = torch.randint(0, 256, (BATCH, IMG, IMG, 3), generator=gen, device=dev,
+                            dtype=torch.uint8)
+    counts = (cnb.convnext_block, cnb.convnext_block_saving, k2.convnext_block_bwd)
+    with torch.no_grad():
+        infer_batch(model, request)  # warm-up
+    state = create_train_state(cfg, TrainConfig(), model=model)
+    step = make_train_step(cfg, LossConfig(img_size=IMG))
+    batch = synthetic_batch(BASE_TRAIN_BATCH, IMG, gen)
+    state, _, _ = step(state, batch, gen)  # warm-up
+    torch.cuda.synchronize()
+    profiling.enable()
+    try:
+        reset_counts(*counts)
+        with torch.no_grad():
+            res = infer_batch(model, request)
+        torch.cuda.synchronize()
+        serve = tuple(fn.launches for fn in counts)
+        check_outputs(res.outputs, BATCH, cfg)
+        reset_counts(*counts)
+        state, metrics, _ = step(state, batch, gen)
+        torch.cuda.synchronize()
+        train = tuple(fn.launches for fn in counts)
+        per_root = profiling.report()["per_root"]
+    finally:
+        profiling.disable()
+        profiling.reset()
+    vals = {k: float(v) for k, v in metrics.items()}
+    if not all(v == v and abs(v) != float("inf") for v in vals.values()) \
+            or vals["step_skipped"] != 0.0:
+        raise RuntimeError(f"[base-model] the train step is not finite or was skipped: {vals}")
+    if serve != (want_k, 0, 0) or train != (0, want_k, want_k):
+        raise RuntimeError(f"[base-model] launches (K1, K1 saving, K2) per forward {serve}, per "
+                           f"step {train}; want ({want_k}, 0, 0) and (0, {want_k}, {want_k})")
+    trunk = {root: (per_root[root].get("trunk.blocks.kernel", 0),
+                    per_root[root].get("trunk.blocks.eager", 0)) for root in ("infer", "train_step")}
+    if any(v != (want_k, want_e) for v in trunk.values()):
+        raise RuntimeError(f"[base-model] trunk.blocks (kernel, eager) per root {trunk}, want "
+                           f"({want_k}, {want_e})")
+    log(f"[base-model] v1 at ConvNeXt-Base's widths {cfg.backbone_dims}, depths "
+        f"{cfg.backbone_depths}, bf16, {IMG}^2: launches (K1, K1 saving, K2) per batch-{BATCH} "
+        f"forward {serve}, per batch-{BASE_TRAIN_BATCH} train step {train}; trunk.blocks "
+        f"(kernel, eager) per root {trunk}; step loss {vals['loss_total']:.4f}, grad_norm "
+        f"{vals['grad_norm']:.4f}")
+    del model, state, step, batch, res
+    totals = {}
+    for key, sub in (("k1", "k1"), ("saving", "saving"), ("k2", "k2")):
+        stages = [(r["c"], r["hw"], r["depth"]) for r in rows]
+        b_ms, b_by = depth_sum([(r[sub]["bound_ms"], r[sub]["bound_by"]) for r in rows], stages)
+        totals[key] = {"ms": sum(r["depth"] * r[sub]["ms"] for r in rows),
+                       "bound_ms": b_ms, "bound_by": b_by}
+    out = {"rows": rows, "totals": totals, "launches": {"forward": serve, "train_step": train},
+           "trunk_blocks": trunk, "errors": errs}
+    log("[base] " + json.dumps(out))
+    return out
+
+
 def timed_build(name):
     from multitask_bonetumor_yolo_tpu_torch.ops.kernels import build
 
@@ -3324,7 +3535,7 @@ def timed_build(name):
 
 
 PHASES = ("kernel", "model", "infer-cli", "eval", "trainer", "ddp", "raw", "tools", "recipe", "k2",
-          "k2-split", "train", "k3", "k4", "k4-split", "fwdbwd", "k7", "lab")
+          "k2-split", "train", "k3", "k4", "k4-split", "fwdbwd", "k7", "lab", "base")
 
 
 def main(argv=None) -> int:
@@ -3370,12 +3581,18 @@ def main(argv=None) -> int:
             continue
         for line in lines:
             log(f"[build] {line}")
-    for c in (48, 96, 192, 384):  # the Hopper kernels, one instantiation per width
+    top = cnb.HOPPER_MAX_CHANNELS  # the model's block route reads it: both libraries' ceiling
+    for route in (cnb.forward_route, k2.hopper_route):
+        if not route(torch.bfloat16, top) or route(torch.bfloat16, top + 16):
+            raise RuntimeError(f"{route.__module__}.{route.__name__}: the library's bf16 ceiling "
+                               f"is not HOPPER_MAX_CHANNELS = {top}")
+    for c in (48, 96, 192, 384, 512):  # the Hopper kernels, one instantiation per width
         for saving in (False, True):
             log(f"[build] K1 Hopper design at C={c}{' (saving form)' if saving else ''}: "
                 f"{json.dumps(cnb.hopper_tile(c, saving))}")
-        log(f"[build] K2 row pass at C={c}: {json.dumps(k2.row_pass_config(c))}; K4's: "
-            f"{json.dumps(k2.row_pass_config(c, v1=True))}")
+        v1 = (f"; K4's: {json.dumps(k2.row_pass_config(c, v1=True))}"
+              if k2.bwd_v1_route(torch.bfloat16, c) else "")
+        log(f"[build] K2 row pass at C={c}: {json.dumps(k2.row_pass_config(c))}{v1}")
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     r = {}  # each phase's result, by phase
@@ -3408,6 +3625,7 @@ def main(argv=None) -> int:
         ("fwdbwd", lambda: phase_block_fwdbwd(cnb, k2, k3, dev, gen)),
         ("k7", lambda: phase_k7(dev, gen, card)),
         ("lab", lambda: phase_lab(cnb, dev)),
+        ("base", lambda: phase_base(cnb, k2, dev, gen)),
     )
     assert tuple(name for name, _ in table) == PHASES
     for name, run in table:
@@ -3435,6 +3653,12 @@ def main(argv=None) -> int:
     fb_launches, fb_table, fb_totals, fb_grad_err = r["fwdbwd"]
     lab_entry = r["lab"]
     k7_rows = r["k7"]
+    base = r["base"]
+
+    def base_widths(key, launches):  # phase 21's rows of one kernel, ConvNeXt-Base's widths
+        return {"launches": launches, **base["totals"][key],
+                "per_stage": [{**row[key], **(row["fwd_bwd"] if key == "k2" else {})}
+                              for row in base["rows"]]}
 
     infer_bound = depth_sum([k1_bound(BATCH, s, s, c) for c, s, _ in STAGES], STAGES)
     common = {"route": "cuda", "library_ms": None}
@@ -3447,7 +3671,8 @@ def main(argv=None) -> int:
          "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms,
          "first_design_ms": sum(d * row["first_design_ms"]
                                 for (_, _, d), row in zip(STAGES, per_stage)),
-         "bound_ms": infer_bound[0], "bound_by": infer_bound[1], "per_stage": per_stage},
+         "bound_ms": infer_bound[0], "bound_by": infer_bound[1], "per_stage": per_stage,
+         "base_widths": base_widths("k1", base["launches"]["forward"][0])},
         {"name": "convnext_block_saving", **common,
          "source": "multitask_bonetumor_yolo_tpu_torch/csrc/convnext_block.cu",
          "replaces": "multitask_bonetumor_yolo_tpu/ops/pallas/convnext_block.py:563",
@@ -3460,7 +3685,8 @@ def main(argv=None) -> int:
                         "first_design_ms": row["saving_first_design_ms"],
                         "plain_ms": row["saving_plain_ms"], "eager_fwd_ms": row["eager_fwd_ms"],
                         "bound_ms": row["saving_bound_ms"], "bound_by": row["saving_bound_by"],
-                        "max_abs_err": row["saving_max_abs_err"]} for row in bwd_stages]},
+                        "max_abs_err": row["saving_max_abs_err"]} for row in bwd_stages],
+         "base_widths": base_widths("saving", base["launches"]["train_step"][1])},
         {"name": "convnext_block_bwd", **common,
          "source": "multitask_bonetumor_yolo_tpu_torch/csrc/convnext_block_bwd.cu",
          "replaces": "multitask_bonetumor_yolo_tpu/ops/pallas/convnext_block_bwd.py:312",
@@ -3471,7 +3697,8 @@ def main(argv=None) -> int:
          "bound_by": tot["bound"][1], "eager_bwd_ms": tot["eager"],
          "launches_per_call": max(r["launches_per_call"] for r in k2_split
                                   if r["dtype"] == "torch.bfloat16"),
-         "per_stage": bwd_stages, "split": k2_split},
+         "per_stage": bwd_stages, "split": k2_split,
+         "base_widths": base_widths("k2", base["launches"]["train_step"][2])},
         {"name": "dwconv7", "route": "cuda",
          "source": "multitask_bonetumor_yolo_tpu_torch/csrc/dwconv.cu",
          "replaces": "multitask_bonetumor_yolo_tpu/ops/pallas/dwconv.py:25",

@@ -32,7 +32,7 @@
 //
 //   * Hopper design (namespace k1h, device code and launch table in
 //     csrc/convnext_block_h.cuh, which the kernel lab csrc/kernel_lab.cu
-//     shares; bf16, C <= 384; the route below): TM =
+//     shares; bf16, C <= 512; the route below): TM =
 //     64 pixels per CTA (an 8 x 8 tile; wgmma's M), 128 (8 x 16) at C = 192,
 //     in two warpgroups. LN writes dt(z) straight into a K-major
 //     128-byte-swizzled A tile (csrc/wgmma.cuh). For each chunk of NC hidden
@@ -40,7 +40,8 @@
 //     accumulator registers, dt(a) written straight into a swizzled A tile,
 //     then out[TM, C] += dt(a) w2'^T-chunk on wgmma into fp32 accumulators.
 //     At TM = 64 both warpgroups share the 64 rows and split each product's
-//     columns (C/2 accumulators each: 96 registers a thread at C = 384); at
+//     columns (C/2 accumulators each: 96 registers a thread at C = 384, 128
+//     at C = 512, one m64n256k16 product per k step of fc2); at
 //     TM = 128 each warpgroup owns 64 rows and all the columns. The products
 //     are pipelined: chunk k's fc2 and chunk k+1's fc1 are in flight
 //     together, GELU(k+1) runs under fc2(k), one barrier per chunk. The
@@ -48,8 +49,12 @@
 //     layouts of w1 and w2, folded without a transpose), come by cp.async
 //     through two tiles each, w1'^T two chunks ahead of its product and
 //     w2'^T one. The epilogue adds b2' and x in fp32 and writes 16 bytes per
-//     store. NC = 64 (32 at C = 384, where the tiles, dt(z) and the
-//     accumulators fill the SM); two CTAs per SM at C <= 96. What holds it
+//     store. NC = 64 (32 at C = 384 and 512, where the tiles, dt(z) and the
+//     accumulators fill the SM; at C = 512 the two w2'^T chunks share one
+//     tile, each in the half of its 128-byte rows that NC = 32 leaves free,
+//     208 KB in all where two tiles would take 272); two CTAs per SM at
+//     C <= 96; ptxas (CUDA 12.8): 167 registers at CP = 384, 186 at 512, no
+//     spills. What holds it
 //     (PERF.md, tools/k1_knockout.py): phase 1 and LN are half its time or
 //     more at C <= 192; the chunk loop copies 8C^2 weight bytes per TM
 //     pixels (944 MB per launch at TM = 64 at every stage of the batch-16
@@ -65,13 +70,13 @@
 //     fragments (bf16 x bf16 -> fp32, TF32 for fp32 inputs) by 8 warps as 2
 //     rows x 4 columns; fc1 fragments staged through an fp32 tile for bias +
 //     GELU; weights through a 2-deep ring of KS x NH tiles, one barrier per
-//     tile. It runs fp32, bf16 at C > 384 (where the output accumulators
+//     tile. It runs fp32, bf16 at C > 512 (where the output accumulators
 //     alone would take 192 registers a thread at 64 pixels), and, through its
 //     own entry cnb_forward_v0, the "before" of the Hopper design and the
 //     first-design lab's `full`.
 //
 // The route (cnb_forward_route, which the wrapper asks to pick the operands'
-// layouts): bf16 up to C = 384 runs the Hopper design, the rest the first.
+// layouts): bf16 up to C = 512 runs the Hopper design, the rest the first.
 //
 // Numerics (both designs; match the plain twin convnext_block_plain): dwconv
 // with fp32 taps and fp32 accumulation; LN moments in fp32 as E[y^2] - mean^2
@@ -115,14 +120,14 @@ int launch(const void* x, void* out, void* y, const float* dw, const float* dwb,
 #undef CNB_LAUNCH
 }
 
-// K1 in bf16 on Hopper (C <= 384), namespace k1h: its device code and
+// K1 in bf16 on Hopper (C <= 512), namespace k1h: its device code and
 // launch table are in csrc/convnext_block_h.cuh, which the kernel lab shares.
 
 inline bool bad_shape(int B, int H, int W, int C) {
   return B <= 0 || H <= 0 || W <= 0 || C <= 0 || C % 16 != 0 || C > MAXC;
 }
 
-// K1's bf16 calls up to C = 384 run the Hopper design (namespace k1h); fp32
+// K1's bf16 calls up to C = 512 run the Hopper design (namespace k1h); fp32
 // and the wider bf16 calls, the first design
 inline bool hopper_route(int C, int is_bf16) { return is_bf16 && C <= k1h::HMAXC; }
 
@@ -204,7 +209,7 @@ int cnb_forward_tile(int C, int is_bf16, int save, int* info) {
 #undef CNB_TILE
 }
 
-// The Hopper design's tile at width C (bf16, C <= 384), inference form (save
+// The Hopper design's tile at width C (bf16, C <= 512), inference form (save
 // = 0) or saving form: info = {TM, TH, TW, CTAs per SM, shared-memory bytes
 // per CTA, hidden chunk NC}. Launches nothing; returns the CUDA
 // error of the query, or 0.

@@ -36,7 +36,7 @@
 // it must move are x, y, g in and dx out (4 x 2*C per pixel in bf16, ~0.047
 // ms at stage 0): bound by the products.
 //
-// What the design does about it, in bf16 up to C = 384 (namespace k2h, the
+// What the design does about it, in bf16 up to C = 512 (namespace k2h, the
 // Hopper pipeline; four launches, no atomics, the same bits every run):
 //   1. row pass, one CTA (two warpgroups) per 64 pixels: y and g into
 //      shared memory by cp.async, LN moments (four threads per pixel), dt(z)
@@ -53,7 +53,15 @@
 //      + ln_bias) and dt(g) go out transposed ([C, P]) for the weight pass.
 //      Shared memory: dt(z), dt(g) and three weight chunks, 211 KB at
 //      C = 384 (NC = 32, one CTA per SM), 147 KB at C = 192 (NC = 64, one),
-//      103 KB at C = 96 (NC = 64, two: 128 registers).
+//      103 KB at C = 96 (NC = 64, two: 128 registers). At C = 512 the A
+//      tiles alone take 128 KB and three 32-column weight chunks another
+//      160 with their 128-byte rows: the split form (RowSmem::SPLIT) takes
+//      16 hidden columns a chunk, warpgroup 0 computing h1 and warpgroup 1
+//      d_a over all 16 (the 64 x 16 products each warpgroup runs at C = 384)
+//      and trading them through shared memory for the GELU; w1^T's chunk in
+//      the 32-byte swizzle (16 KB, where 128-byte rows would take 64); the
+//      prologue's transposes in two slabs of 256 channels; 198 KiB, one CTA
+//      per SM, 255 registers and no spills (ptxas, CUDA 12.8).
 //   2. weight pass: dw1^T = z2d^T dt(d_h) and W = dt(g)^T dt(a), [C, 4C] over
 //      K = the pixels, split-K into fp32 partials; one CTA (two warpgroups)
 //      per 128 x 128 tile and slice, K-major tiles (the row pass wrote them
@@ -70,7 +78,7 @@
 // weight gradient (147 KB at C = 96, 2.4 MB at C = 384), more than an SM
 // holds. Every operand tile is K-major in the 128-byte swizzle (wgmma.cuh).
 //
-// fp32, and bf16 wider than 384 (whose dt(z) and dt(g) tiles, 96 KB each at
+// fp32, and bf16 wider than 512 (whose dt(z) and dt(g) tiles, 96 KB each at
 // C = 768, do not fit beside the weight chunks), run the first design: wmma
 // tensor-core products on 64 x 64 tiles, no TMA or wgmma, sixteen launches:
 //   * prep (LN moments, the dt operands, db2), hidden (h1 and d_a for a
@@ -102,7 +110,8 @@
 // device code, plus the bias). Its bound is K2's products plus a third 7x7
 // pass (the recompute of y): at batch 8 the products still bound it.
 //
-// K4 in bf16 up to C = 384 (cnb_backward_v1_route, K2's rule) is K2's Hopper
+// K4 in bf16 up to C = 384 (cnb_backward_v1_route: K2's rule stopped at
+// Tiny's widths; the split row pass has no V1 form) is K2's Hopper
 // pipeline under V1, five launches: the recompute, then K2's row pass with
 // v1's operands (k2_row_kernel<CP, NC, true>: LN moments and z from the
 // fp32 y, read from device memory by four threads per pixel and again for
@@ -787,7 +796,7 @@ int backward(const void* const* p, void* ws, int B, int H, int W, int C, float e
 }
 
 // ===========================================================================
-// K2 in bf16 on Hopper (C <= 384): four launches, the products on wgmma.
+// K2 in bf16 on Hopper (C <= 512): four launches, the products on wgmma.
 // ===========================================================================
 namespace k2h {
 
@@ -798,7 +807,8 @@ constexpr int WT = 256;      // weight-pass threads: two warpgroups
 constexpr int WM = 128;      // weight-pass tile: 128 x 128, 64 rows per warpgroup
 constexpr int WK = 64;       // weight-pass K (pixels) per stage
 constexpr int WST = 3;       // weight-pass stages in the ring
-constexpr int HMAXC = 384;   // widest C the row pass holds on chip
+constexpr int HMAXC = 512;   // widest C the row pass holds on chip
+constexpr int V1_HMAXC = 384;  // K4's (V1) widest: its row pass stops at Tiny's widths
 constexpr size_t WTILE = size_t(WM) * 128;  // one 128-row x 64-column bf16 tile
 constexpr int SST = TM + 8;  // row stride of the transposed d_h / a staging: no bank conflicts
 
@@ -817,24 +827,35 @@ struct RowArgs {
 };
 
 // Shared memory of the row pass for channel capacity CP and hidden chunk NC.
+// SPLIT (CP = 512, where this layout at NC = 32 would take 275 KB, and 227
+// fit): NC = 16; warpgroup 0 computes h1 and warpgroup 1 d_a, each over the
+// chunk's 16 columns (the 64 x 16 products that NC = 32 gives each
+// warpgroup by columns), and they trade the products through XCH; the w1^T
+// chunk [CP, 16] in the 32-byte swizzle (16 KB, where 128-byte rows take 64);
+// the prologue stages its transposes in two slabs of channels. 198 KiB.
 template <int CP, int NC>
 struct RowSmem {
+  static constexpr bool SPLIT = CP > 384;
   static constexpr int KB = (CP + 63) / 64;  // 64-column blocks of C
+  static constexpr int SLAB = SPLIT ? CP / 2 : CP;  // channels per prologue staging
   static constexpr size_t Z = 0;                            // dt(z)  [64 px, CP] A operand
   static constexpr size_t G = Z + size_t(KB) * TM * 128;   // dt(g)  [64 px, CP] A operand
   static constexpr size_t W1 = G + size_t(KB) * TM * 128;  // w1'^T chunk [NC, CP] B operand
   static constexpr size_t W2 = W1 + size_t(KB) * NC * 128; // w2' chunk   [NC, CP] B operand
   static constexpr size_t W1T = W2 + size_t(KB) * NC * 128; // w1^T chunk [CP, NC] B operand
-  static constexpr size_t DH = W1T + size_t(CP) * 128;     // dt(d_h) [64 px, NC] A operand
+  static constexpr size_t DH = W1T + size_t(CP) * (SPLIT ? 32 : 128);  // dt(d_h) [64 px, NC] A
   static constexpr size_t ST = DH + size_t(TM) * 128;      // dt(d_h)^T, dt(a)^T [2][NC][SST]
-  static constexpr size_t MEAN = ST + size_t(2) * NC * SST * 2;  // mean, rstd [64] each
+  static constexpr size_t XCH = ST + size_t(2) * NC * SST * 2;  // SPLIT: h1, d_a [2][128][8]
+  static constexpr size_t MEAN = XCH + (SPLIT ? 2 * 128 * 8 * 4 : 0);  // mean, rstd [64] each
   static constexpr size_t DB1 = MEAN + 2 * TM * 4;         // db1 per warp [4][NC]
   static constexpr size_t ROWS = DB1 + 4 * NC * 4;         // row sums [2 wg][64][2]
   static constexpr size_t BYTES = ROWS + 2 * TM * 2 * 4;
-  // the prologue stages dt(z * lns + lnb)^T and dt(g)^T [C][64] in W1..DH,
-  // the epilogue the column partials [2 wg][4 warps][CP/2][2]
-  static_assert(W1 + 2 * size_t(CP) * TM * 2 <= DH, "prologue staging overflows");
+  // the prologue stages dt(z * lns + lnb)^T and dt(g)^T [SLAB][64] from W1
+  // (before the moments), the epilogue the column partials [2 wg][4 warps][CP/2][2]
+  static_assert(W1 + 2 * size_t(SLAB) * TM * 2 <= (SPLIT ? MEAN : DH),
+                "prologue staging overflows");
   static_assert(W1 + size_t(2) * 4 * (CP / 2) * 2 * 4 <= DH, "epilogue staging overflows");
+  static_assert(!SPLIT || NC == 16, "the split form's chunk is one k16 step of w1^T");
 };
 
 // y at pixel p0 + m, channels c0 .. c0 + 7 (C > c0), as fp32: K2 from the
@@ -879,7 +900,8 @@ __device__ __forceinline__ void row_load_dz2(const RowArgs& a, unsigned char* S,
     const int c = i / CH, ch = i % CH;
     const bool in = c < a.C;
     const bf16* src = a.w1t + size_t(c) * 4 * a.C + j0 + ch * 8;
-    cp_async16_zfill(S + L::W1T + sm90::swz(CP, c, ch * 8), in ? src : a.w1t, in);
+    const int off = L::SPLIT ? sm90::swz32(c, ch * 8) : sm90::swz(CP, c, ch * 8);
+    cp_async16_zfill(S + L::W1T + off, in ? src : a.w1t, in);
   }
 }
 
@@ -955,60 +977,65 @@ __global__ void __launch_bounds__(RT, CP <= 96 ? 2 : 1) k2_row_kernel(const RowA
   __syncthreads();
 
   // dt(z) in place; the weight pass's dt(z * lns + lnb)^T and dt(g)^T
-  // staged [C][64]
+  // staged [SLAB][64], slab by slab of channels (one slab but at CP = 512)
   bf16* st_z2 = reinterpret_cast<bf16*>(S + L::W1);
-  bf16* st_g = st_z2 + size_t(C) * TM;
-  for (int i = tid; i < TM * CH; i += RT) {  // lanes along the pixels: no bank conflicts
-    const int m = i % TM, c0 = (i / TM) * 8;
-    uint4* zp = reinterpret_cast<uint4*>(S + L::Z + sm90::swz(TM, m, c0));
-    if (c0 >= C) {  // zero already (V1 loaded no y into the tile)
-      if constexpr (V1) *zp = make_uint4(0u, 0u, 0u, 0u);
-      continue;
-    }
-    uint4* gp = reinterpret_cast<uint4*>(S + L::G + sm90::swz(TM, m, c0));
-    const uint4 gv = *gp;
-    const bf16* ge = reinterpret_cast<const bf16*>(&gv);
-    float yv[8];
-    y_chunk<V1>(a, S + L::Z, p0, m, c0, yv);
-    uint4 zv, dv;
-    bf16* ze = reinterpret_cast<bf16*>(&zv);
-    bf16* de = reinterpret_cast<bf16*>(&dv);
-    const bool in = p0 + m < P;
-    const float mu = s_mean[m], r = s_rstd[m];
+  bf16* st_g = st_z2 + size_t(L::SLAB) * TM;
+  for (int cs = 0; cs < CP; cs += L::SLAB) {
+    const int ns = max(0, min(C - cs, L::SLAB));  // channels of this slab below C
+    for (int i = tid; i < TM * (L::SLAB / 8); i += RT) {  // lanes along the pixels: no bank conflicts
+      const int m = i % TM, c0 = cs + (i / TM) * 8;
+      uint4* zp = reinterpret_cast<uint4*>(S + L::Z + sm90::swz(TM, m, c0));
+      if (c0 >= C) {  // zero already (V1 loaded no y into the tile)
+        if constexpr (V1) *zp = make_uint4(0u, 0u, 0u, 0u);
+        continue;
+      }
+      uint4* gp = reinterpret_cast<uint4*>(S + L::G + sm90::swz(TM, m, c0));
+      const uint4 gv = *gp;
+      const bf16* ge = reinterpret_cast<const bf16*>(&gv);
+      float yv[8];
+      y_chunk<V1>(a, S + L::Z, p0, m, c0, yv);
+      uint4 zv, dv;
+      bf16* ze = reinterpret_cast<bf16*>(&zv);
+      bf16* de = reinterpret_cast<bf16*>(&dv);
+      const bool in = p0 + m < P;
+      const float mu = s_mean[m], r = s_rstd[m];
 #pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      const int c = c0 + e;
-      const float z = in ? (yv[e] - mu) * r : 0.f;
-      const bf16 z2 = __float2bfloat16(in ? z * __ldg(a.lns + c) + __ldg(a.lnb + c) : 0.f);
-      ze[e] = V1 ? z2 : __float2bfloat16(z);
-      st_z2[c * TM + m] = z2;
-      st_g[c * TM + m] = ge[e];
-      if constexpr (V1) de[e] = __float2bfloat16(bf(ge[e]) * __ldg(a.gamma + c));
+      for (int e = 0; e < 8; ++e) {
+        const int c = c0 + e;
+        const float z = in ? (yv[e] - mu) * r : 0.f;
+        const bf16 z2 = __float2bfloat16(in ? z * __ldg(a.lns + c) + __ldg(a.lnb + c) : 0.f);
+        ze[e] = V1 ? z2 : __float2bfloat16(z);
+        st_z2[(c - cs) * TM + m] = z2;
+        st_g[(c - cs) * TM + m] = ge[e];
+        if constexpr (V1) de[e] = __float2bfloat16(bf(ge[e]) * __ldg(a.gamma + c));
+      }
+      *zp = zv;
+      if constexpr (V1) *gp = dv;  // d_a's operand dt(g * gamma); st_g keeps dt(g)
     }
-    *zp = zv;
-    if constexpr (V1) *gp = dv;  // d_a's operand dt(g * gamma); st_g keeps dt(g)
-  }
-  __syncthreads();
-  for (int i = tid; i < 2 * C * 8; i += RT) {
-    const int which = i / (C * 8), c = (i / 8) % C, q = i % 8;
-    const uint4 v = *reinterpret_cast<const uint4*>((which ? st_g : st_z2) + c * TM + q * 8);
-    *reinterpret_cast<uint4*>((which ? a.gT : a.z2T) + size_t(c) * a.Pp + p0 + q * 8) = v;
-  }
-  for (int c = warp; c < C; c += RT / 32) {  // db2 = sum dt(g * gamma) (V1: sum g * gamma), and sum g
-    const float gm = __ldg(a.gamma + c);
-    const float g0 = bf(st_g[c * TM + lane]), g1 = bf(st_g[c * TM + lane + 32]);
-    float s_g = g0 + g1;
-    float s_do = V1 ? g0 * gm + g1 * gm
-                    : bf(__float2bfloat16(g0 * gm)) + bf(__float2bfloat16(g1 * gm));
+    __syncthreads();
+    for (int i = tid; i < 2 * ns * 8; i += RT) {
+      const int which = i / (ns * 8), c = (i / 8) % ns, q = i % 8;
+      const uint4 v = *reinterpret_cast<const uint4*>((which ? st_g : st_z2) + c * TM + q * 8);
+      *reinterpret_cast<uint4*>((which ? a.gT : a.z2T) + size_t(cs + c) * a.Pp + p0 + q * 8) = v;
+    }
+    for (int cl = warp; cl < ns; cl += RT / 32) {  // db2 = sum dt(g * gamma) (V1: sum g * gamma), and sum g
+      const int c = cs + cl;
+      const float gm = __ldg(a.gamma + c);
+      const float g0 = bf(st_g[cl * TM + lane]), g1 = bf(st_g[cl * TM + lane + 32]);
+      float s_g = g0 + g1;
+      float s_do = V1 ? g0 * gm + g1 * gm
+                      : bf(__float2bfloat16(g0 * gm)) + bf(__float2bfloat16(g1 * gm));
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      s_g += __shfl_xor_sync(0xffffffffu, s_g, o);
-      s_do += __shfl_xor_sync(0xffffffffu, s_do, o);
+      for (int o = 16; o > 0; o >>= 1) {
+        s_g += __shfl_xor_sync(0xffffffffu, s_g, o);
+        s_do += __shfl_xor_sync(0xffffffffu, s_do, o);
+      }
+      if (lane == 0) {
+        a.db2p[size_t(tile) * C + c] = s_do;
+        a.sgp[size_t(tile) * C + c] = s_g;
+      }
     }
-    if (lane == 0) {
-      a.db2p[size_t(tile) * C + c] = s_do;
-      a.sgp[size_t(tile) * C + c] = s_g;
-    }
+    if (cs + L::SLAB < CP) __syncthreads();  // the staging is free for the next slab
   }
   sm90::fence_proxy();  // the A tiles, written by st.shared, are read by wgmma
   __syncthreads();      // the staging is consumed: the weight tiles may land
@@ -1031,6 +1058,34 @@ __global__ void __launch_bounds__(RT, CP <= 96 ? 2 : 1) k2_row_kernel(const RowA
     sm90::fence_proxy();
     __syncthreads();
     float hacc[NH / 2], dacc[NH / 2];
+    if constexpr (L::SPLIT) {
+      // warpgroup 0: h1 = dt(z) w1', warpgroup 1: d_a = dt(g) w2'^T, over all
+      // NC columns; then each takes both at columns wg * NH .. from XCH
+      float pacc[NC / 2];
+#pragma unroll
+      for (int i = 0; i < NC / 2; ++i) pacc[i] = 0.f;
+      const unsigned char* pa = S + (wg ? L::G : L::Z);
+      const unsigned char* pb = S + (wg ? L::W2 : L::W1);
+      sm90::fence();
+#pragma unroll
+      for (int s = 0; s < KS; ++s) {
+        const size_t ka = size_t(s >> 2) * TM * 128 + (s & 3) * 32;
+        const size_t kb = size_t(s >> 2) * NC * 128 + (s & 3) * 32;
+        sm90::Mma<NC>::run(pacc, sm90::desc(pa + ka), sm90::desc(pb + kb));
+      }
+      sm90::commit();
+      sm90::wait<0>();
+      float4* xch = reinterpret_cast<float4*>(S + L::XCH);  // [2 wg][128 threads][NC / 8]
+      const int t = tid & 127;
+#pragma unroll
+      for (int i = 0; i < NC / 8; ++i)
+        xch[(wg * 128 + t) * (NC / 8) + i] =
+            make_float4(pacc[4 * i], pacc[4 * i + 1], pacc[4 * i + 2], pacc[4 * i + 3]);
+      __syncthreads();
+      const float4 hv = xch[t * (NC / 8) + wg], dv = xch[(128 + t) * (NC / 8) + wg];
+      hacc[0] = hv.x; hacc[1] = hv.y; hacc[2] = hv.z; hacc[3] = hv.w;
+      dacc[0] = dv.x; dacc[1] = dv.y; dacc[2] = dv.z; dacc[3] = dv.w;
+    } else {
 #pragma unroll
     for (int i = 0; i < NH / 2; ++i) hacc[i] = dacc[i] = 0.f;
     sm90::fence();
@@ -1043,6 +1098,7 @@ __global__ void __launch_bounds__(RT, CP <= 96 ? 2 : 1) k2_row_kernel(const RowA
     }
     sm90::commit();
     sm90::wait<0>();
+    }
 
     // GELU and its derivative on the accumulators
     bf16* st_dh = reinterpret_cast<bf16*>(S + L::ST);
@@ -1102,10 +1158,14 @@ __global__ void __launch_bounds__(RT, CP <= 96 ? 2 : 1) k2_row_kernel(const RowA
     sm90::fence_proxy();
     __syncthreads();
     sm90::fence();
+    if constexpr (L::SPLIT) {
+      sm90::Mma<ND>::run(acc, sm90::desc(S + L::DH), sm90::desc32(S + L::W1T + size_t(wg * ND) * 32));
+    } else {
 #pragma unroll
     for (int s = 0; s < KD; ++s)
       sm90::Mma<ND>::run(acc, sm90::desc(S + L::DH + s * 32),
                          sm90::desc(S + L::W1T + size_t(wg * ND) * 128 + s * 32));
+    }
     sm90::commit();
     sm90::wait<0>();
     __syncthreads();  // d_h's tile, the staging and w1^T's tile are free
@@ -1470,11 +1530,13 @@ int row_occupancy(int* smem, int* ctas) {
 
 template <bool V1>
 int row_config(int C, int* smem, int* ctas, int* nc) {
-  *nc = C <= 192 ? 64 : 32;
+  *nc = C <= 192 ? 64 : C <= 384 ? 32 : 16;
   if (C <= 48) return row_occupancy<48, 64, V1>(smem, ctas);
   if (C <= 96) return row_occupancy<96, 64, V1>(smem, ctas);
   if (C <= 192) return row_occupancy<192, 64, V1>(smem, ctas);
-  return row_occupancy<384, 32, V1>(smem, ctas);
+  if (V1 || C <= 384) return row_occupancy<384, 32, V1>(smem, ctas);
+  if constexpr (!V1) return row_occupancy<512, 16, false>(smem, ctas);
+  return int(cudaErrorInvalidValue);
 }
 
 template <int CP, int NC, bool V1>
@@ -1519,7 +1581,8 @@ int backward(const void* const* p, void* ws, int B, int H, int W, int C, float e
   if (C <= 48) rc = launch_row<48, 64, V1>(ra, pl.tiles, s);
   else if (C <= 96) rc = launch_row<96, 64, V1>(ra, pl.tiles, s);
   else if (C <= 192) rc = launch_row<192, 64, V1>(ra, pl.tiles, s);
-  else rc = launch_row<384, 32, V1>(ra, pl.tiles, s);
+  else if (V1 || C <= 384) rc = launch_row<384, 32, V1>(ra, pl.tiles, s);
+  else if constexpr (!V1) rc = launch_row<512, 16, false>(ra, pl.tiles, s);
   if (rc) return rc;
 
   {
@@ -1578,15 +1641,17 @@ inline bool bad_shape(int B, int H, int W, int C) {
   return B <= 0 || H <= 0 || W <= 0 || C <= 0 || C % 16 != 0 || C > MAXC;
 }
 
-// K2's and K4's bf16 calls up to C = 384 run the Hopper pipeline (namespace
-// k2h); fp32 and the wider bf16 calls, the first design
-inline bool hopper_route(int C, int is_bf16) { return is_bf16 && C <= k2h::HMAXC; }
+// K2's bf16 calls up to C = 512 and K4's up to C = 384 run the Hopper
+// pipeline (namespace k2h); fp32 and the wider bf16 calls, the first design
+inline bool hopper_route(int C, int is_bf16, bool v1 = false) {
+  return is_bf16 && C <= (v1 ? k2h::V1_HMAXC : k2h::HMAXC);
+}
 
 // the workspace of K2 (v1 false) or K4 at this shape, on its route or
 // (first_design) on the first design
 inline long long workspace(int B, int H, int W, int C, int is_bf16, bool v1, bool first_design) {
   if (bad_shape(B, H, W, C)) return -1;
-  if (!first_design && hopper_route(C, is_bf16))
+  if (!first_design && hopper_route(C, is_bf16, v1))
     return (long long)k2h::make_plan(B, H, W, C, v1).total;
   return (long long)(is_bf16 ? make_plan<__nv_bfloat16>(B, H, W, C, v1).total
                              : make_plan<float>(B, H, W, C, v1).total);
@@ -1601,7 +1666,7 @@ long long cnb_backward_workspace(int B, int H, int W, int C, int is_bf16) {
   return workspace(B, H, W, C, is_bf16, false, false);
 }
 
-// ptrs: in bf16 up to C = 384 the 23 pointers listed above k2h::backward,
+// ptrs: in bf16 up to C = 512 the 23 pointers listed above k2h::backward,
 // otherwise the 24 listed above the first design's `backward` (inputs
 // contiguous NHWC or as listed, compute dtype bf16 if is_bf16 else fp32,
 // parameter vectors and every gradient but dx fp32); ws:
@@ -1620,10 +1685,12 @@ int cnb_backward(const void* const* ptrs, void* ws, int B, int H, int W, int C, 
 // its pointer list), 0 if they run the first design.
 int cnb_backward_route(int C, int is_bf16) { return int(hopper_route(C, is_bf16)); }
 
-// K2's (v1 = 0) or K4's Hopper row pass at width C (C <= 384): shared memory
-// per CTA, CTAs per SM and the hidden chunk NC; returns a CUDA error, or 0.
+// K2's (v1 = 0, C <= 512) or K4's (C <= 384) Hopper row pass at width C:
+// shared memory per CTA, CTAs per SM and the hidden chunk NC; returns a CUDA
+// error, or 0.
 int cnb_backward_row_config(int C, int v1, int* smem_bytes, int* ctas_per_sm, int* chunk) {
-  if (C <= 0 || C % 16 != 0 || C > k2h::HMAXC) return int(cudaErrorInvalidValue);
+  if (C <= 0 || C % 16 != 0 || C > (v1 ? k2h::V1_HMAXC : k2h::HMAXC))
+    return int(cudaErrorInvalidValue);
   return v1 ? k2h::row_config<true>(C, smem_bytes, ctas_per_sm, chunk)
             : k2h::row_config<false>(C, smem_bytes, ctas_per_sm, chunk);
 }
@@ -1636,7 +1703,7 @@ long long cnb_backward_v1_workspace(int B, int H, int W, int C, int is_bf16, int
 
 // 1 if K4's calls at width C and this dtype run the Hopper pipeline (and take
 // its pointer list), 0 if they run the first design: K2's rule.
-int cnb_backward_v1_route(int C, int is_bf16) { return int(hopper_route(C, is_bf16)); }
+int cnb_backward_v1_route(int C, int is_bf16) { return int(hopper_route(C, is_bf16, true)); }
 
 // K4, the recompute-form backward: in bf16 up to C = 384 the 24 pointers of
 // the V1 form listed above k2h::backward, otherwise the 25 listed above the
@@ -1646,7 +1713,7 @@ int cnb_backward_v1(const void* const* ptrs, void* ws, int B, int H, int W, int 
                     int is_bf16, void* stream) {
   if (bad_shape(B, H, W, C)) return int(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
-  if (hopper_route(C, is_bf16)) return k2h::backward<true>(ptrs, ws, B, H, W, C, eps, s);
+  if (hopper_route(C, is_bf16, true)) return k2h::backward<true>(ptrs, ws, B, H, W, C, eps, s);
   if (is_bf16) return backward<__nv_bfloat16, true>(ptrs, ws, B, H, W, C, eps, s);
   return backward<float, true>(ptrs, ws, B, H, W, C, eps, s);
 }

@@ -1,4 +1,4 @@
-// K1's Hopper design (namespace k1h: bf16, C <= 384, both products on
+// K1's Hopper design (namespace k1h: bf16, C <= 512, both products on
 // wgmma), its device code and launch table, shared by csrc/convnext_block.cu
 // (K1's instantiations and its C entry) and csrc/kernel_lab.cu (the kernel
 // lab: this design cut down phase by phase). The note on the design and on
@@ -42,7 +42,8 @@ namespace k1h {
 using namespace blk;  // NTHREAD, CC, the Phase / Sched enums, phase 1's dw code
 using bf16 = __nv_bfloat16;
 constexpr int NT = 256;          // two warpgroups
-constexpr int HMAXC = 384;       // widest C this design holds on chip
+constexpr int HMAXC = 512;       // widest C this design holds on chip
+constexpr size_t SMEM_MAX = 227 * 1024;  // shared memory an H100 SM gives one CTA
 static_assert(NT == NTHREAD, "phase 1 maps NTHREAD threads");
 
 // The CTA's tile: TM = 64 or 128 pixels, 8 rows of TW. At TM = 64 both
@@ -70,7 +71,10 @@ template <int N> __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 // weight rings (two w1'^T chunk tiles, two w2'^T chunk tiles) and two dt(a)
 // tiles, then the fp32 output staging [TM][LDY]; region B the phase-1
 // scratch (two halo tiles and their taps), then dt(z). A chunk's NC <= 64
-// columns are one 128-byte-swizzled block (half of it at NC = 32).
+// columns are one 128-byte-swizzled block (half of it at NC = 32). Where
+// two w2'^T tiles do not fit beside the rest (CP = 512: 272 KB), the ring
+// is packed (PACK): both chunks share one tile, chunk j in its columns
+// NC (j % 2) .., the half that NC = 32 leaves unused (208 KB).
 template <int CP_, int NC_, typename G>
 struct Smem {
   static constexpr int CP = CP_, NC = NC_, TM = G::TM;
@@ -79,14 +83,20 @@ struct Smem {
   static constexpr size_t W1B = size_t(KB) * NC * 128;   // w1'^T chunk [NC, CP] (B of fc1)
   static constexpr size_t W2B = size_t(CP) * 128;        // w2'^T chunk [CP, NC] (B of fc2)
   static constexpr size_t ACTB = size_t(TM) * 128;       // dt(a) [TM px, NC] (A of fc2)
-  static constexpr size_t W1 = 0, W2 = 2 * W1B, ACT = W2 + 2 * W2B;
-  static constexpr size_t A_BYTES = max_sz(size_t(TM) * LDY * 4, ACT + 2 * ACTB);
   static constexpr size_t HALO = align128(size_t(G::HALO_H) * G::HALO_W * CC * 2);
   static constexpr size_t CHUNK = HALO + align128(size_t(49) * CC * 4);
+  static constexpr size_t YB = size_t(TM) * LDY * 4;           // y, then the output staging
+  static constexpr size_t B_BYTES = max_sz(size_t(KB) * TM * 128, 2 * CHUNK);
+  static constexpr bool PACK =
+      2 * NC <= 64 && align1024(max_sz(YB, 2 * W1B + 2 * W2B + 2 * ACTB)) + B_BYTES + 1024 >
+                          SMEM_MAX;
+  static constexpr size_t W1 = 0, W2 = 2 * W1B, ACT = W2 + (PACK ? 1 : 2) * W2B;
+  static constexpr size_t A_BYTES = max_sz(YB, ACT + 2 * ACTB);
   static constexpr size_t Z = align1024(A_BYTES);                 // dt(z) [TM px, CP] (A of fc1)
-  static constexpr size_t BYTES = Z + max_sz(size_t(KB) * TM * 128, 2 * CHUNK);
+  static constexpr size_t BYTES = Z + B_BYTES;
   static_assert(NC <= 64 && NC % 16 == 0, "a chunk is one 64-column block");
   static_assert(W1B % 1024 == 0 && W2B % 1024 == 0, "swizzled tiles 1024-byte aligned");
+  static_assert(BYTES + 1024 <= SMEM_MAX, "the layout fits an SM");
 };
 
 // Issue the cp.async copies of hidden chunk j0 .. j0 + NC - 1 of w1'^T [4C, C]
@@ -105,18 +115,19 @@ __device__ __forceinline__ void load_w1(unsigned char* S, const bf16* w1t, int C
   }
 }
 
-// The same chunk of w2'^T [C, 4C] (its columns) into w2 tile `slot`, zero
-// past C.
+// The same chunk of w2'^T [C, 4C] (its columns) into w2 tile `slot` (PACK:
+// into columns NC slot .. of the one tile), zero past C.
 template <typename L>
 __device__ __forceinline__ void load_w2(unsigned char* S, const bf16* w2t, int C, int j0,
                                         int slot) {
   constexpr int NC = L::NC;
-  unsigned char* dst = S + L::W2 + slot * L::W2B;
+  unsigned char* dst = S + L::W2 + (L::PACK ? 0 : slot * L::W2B);
+  const int k0 = L::PACK ? slot * NC : 0;  // the chunk's first column in the tile
   constexpr int CH = NC / 8;  // 16-byte pieces of a chunk row
   for (int i = threadIdx.x; i < L::CP * CH; i += NT) {
     const int c = i / CH, ch = i % CH;
     const bool in = c < C;
-    cp_async16_zfill(dst + sm90::swz(L::CP, c, ch * 8),
+    cp_async16_zfill(dst + sm90::swz(L::CP, c, k0 + ch * 8),
                      in ? w2t + size_t(c) * 4 * C + j0 + ch * 8 : w2t, in);
   }
 }
@@ -342,11 +353,13 @@ k1_forward_kernel(const bf16* __restrict__ x, bf16* __restrict__ out,
   // out += dt(a) w2'^T-chunk j: the warpgroup's rows, output columns n2 ..
   auto fc2 = [&](int j) {
     const unsigned char* act = S + L::ACT + (j & 1) * L::ACTB + size_t(m0) * 128;
-    const unsigned char* w2s = S + L::W2 + (j & 1) * L::W2B + size_t(n2) * 128;
+    const unsigned char* w2s =
+        S + L::W2 + (L::PACK ? 0 : (j & 1) * L::W2B) + size_t(n2) * 128;
+    const int kb = L::PACK ? (j & 1) * NC * 2 : 0;  // the chunk's byte offset in a row
     sm90::fence();
 #pragma unroll
     for (int s = 0; s < KD; ++s)
-      sm90::Mma<ND>::run(oacc, sm90::desc(act + s * 32), sm90::desc(w2s + s * 32));
+      sm90::Mma<ND>::run(oacc, sm90::desc(act + s * 32), sm90::desc(w2s + kb + s * 32));
     sm90::commit();
   };
   // the top of chunk k: its w2'^T and chunk k+1's w1'^T landed and visible,
@@ -465,7 +478,8 @@ int forward(const void* x, void* out, void* y, const float* dw, const float* dwb
   if (C <= 48) return K1H_LAUNCH(48, 64, 64);
   if (C <= 96) return K1H_LAUNCH(96, 64, 64);
   if (C <= 192) return K1H_LAUNCH(192, 64, 128);
-  return K1H_LAUNCH(384, 32, 64);
+  if (C <= 384) return K1H_LAUNCH(384, 32, 64);
+  return K1H_LAUNCH(512, 32, 64);
 #undef K1H_LAUNCH
 }
 

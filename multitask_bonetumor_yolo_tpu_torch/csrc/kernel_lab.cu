@@ -64,7 +64,7 @@ int dispatch(int phase, int sched, int tm, const Args& a) {
   } else if (C <= 192) {
     if (tm == 0 || tm == 128) return by_phase<GoH<192, 64, 128>, false>(phase, sched, a);
     if (tm == 64) return by_phase<GoH<192, 64, 64>, true>(phase, sched, a);
-  } else if (C <= k1h::HMAXC) {
+  } else if (C <= 384) {  // the lab stops at Tiny's widths: no phases at K1's C = 512
     if (tm == 0 || tm == 64) return by_phase<GoH<384, 32, 64>, false>(phase, sched, a);
   } else {
     if (tm == 0 || tm == 32) return by_phase<GoV0<Wide>, false>(phase, sched, a);

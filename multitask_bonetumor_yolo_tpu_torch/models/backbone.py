@@ -1,8 +1,9 @@
-"""ConvNeXt-Tiny backbone + C2f stage adapters (counterpart of the JAX
+"""ConvNeXt backbone + C2f stage adapters (counterpart of the JAX
 ``models/backbone.py``).
 
-Stem 4x4/4 patchify conv + LN; four stages of depths (3, 3, 9, 3) and dims
-(96, 192, 384, 768); between stages LN + 2x2/2 patchify conv. Block: 7x7
+Stem 4x4/4 patchify conv + LN; four stages, ConvNeXt-Tiny's depths (3, 3, 9,
+3) and dims (96, 192, 384, 768) by default (ConvNeXt-Base: (3, 3, 27, 3) at
+(128, 256, 512, 1024)); between stages LN + 2x2/2 patchify conv. Block: 7x7
 depthwise -> LN -> 4x MLP -> layer-scale -> residual, run either by the
 hand-written CUDA kernel or by the eager reference (``pallas`` below). In
 training the kernel path is K1's residual-saving form with K2 as its
@@ -19,10 +20,12 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .common import BN_MOMENTUM_BODY, C2f
-from ..ops.kernels.convnext_block import convnext_block, convnext_block_ref
+from ..ops.kernels.convnext_block import HOPPER_MAX_CHANNELS, convnext_block, convnext_block_ref
+from ..utils.profiling import count, span
 
 TINY_DEPTHS = (3, 3, 9, 3)
 TINY_DIMS = (96, 192, 384, 768)
+STAGE_SPANS = tuple(f"model.backbone.stage{i}" for i in range(4))
 
 
 class PatchifyConv(nn.Module):
@@ -65,27 +68,37 @@ def use_kernel(pallas: str, x: torch.Tensor, train: bool = False) -> bool:
     inference: "on" -> the CUDA kernel (its wrapper returns the plain twin
     for a CPU tensor); "off" -> the eager reference; "auto" -> the eager
     reference on a CPU tensor, and on a CUDA tensor (NHWC, C last) the
-    kernel, except in the inference forward (``train=False``) at C = 768,
-    where K1 loses to the eager block: 1.447 against 0.611 ms per block at
-    batch 16, 20x20x768 (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md). Training
-    keeps the kernel wherever ``bwd_for_dim`` picks the fused backward."""
+    kernel up to the widest C of its Hopper design, ``HOPPER_MAX_CHANNELS``
+    = 512 (at 40x40x512, batch 16: 0.805 against the eager block's 1.486
+    ms, ``chip_smoke.py`` phase base), the eager block above it in the
+    inference forward (``train=False``): at C = 768 K1 loses, 1.447 against
+    0.611 ms per block at batch 16, 20x20x768, and at 1024 it takes no call
+    (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md). Training keeps the kernel
+    wherever ``bwd_for_dim`` picks the fused backward."""
     if pallas not in ("auto", "on", "off"):
         raise ValueError(f"unknown pallas setting {pallas!r}")
     if pallas != "auto":
         return pallas == "on"
-    return x.device.type == "cuda" and (train or x.shape[-1] <= 384)
+    return x.device.type == "cuda" and (train or x.shape[-1] <= HOPPER_MAX_CHANNELS)
 
 
 def bwd_for_dim(dim: int, policy: str = "auto") -> str:
     """The block backward of a stage of width ``dim`` (JAX ``_bwd_for_dim``):
     "fused" (K1's saving form + K2) or "ref" (eager blocks under autograd).
-    "auto" is the JAX package's per-stage policy, measured on the TPU: fused
-    for C <= 384, eager at C = 768."""
+    "auto" is the JAX package's per-stage policy, measured on the TPU (fused
+    for C <= 384, eager at C = 768), carried to the widest C of the Hopper
+    designs, ``HOPPER_MAX_CHANNELS`` = 512, on the H100, where
+    the fused pair beats eager autograd: 6.82 against 7.42 ms per block
+    forward and backward at batch 32, 40x40x512, and keeps 108 in place of
+    1104 MiB for the backward (NVIDIA H100 80GB HBM3, 700.00 W;
+    ``chip_smoke.py`` phase base; PERF.md).
+    Wider stages train eager: C = 768 (Tiny's stage 3) runs K2's first
+    design, the TPU's loser, and neither kernel takes C = 1024 (Base's)."""
     if policy not in ("auto", "fused", "ref"):
         raise ValueError(f"unknown block_bwd {policy!r}")
     if policy != "auto":
         return policy
-    return "fused" if dim <= 384 else "ref"
+    return "fused" if dim <= HOPPER_MAX_CHANNELS else "ref"
 
 
 class ConvNeXtBlock(nn.Module):
@@ -118,8 +131,10 @@ class ConvNeXtBlock(nn.Module):
         kernel path, unless this stage trains as eager blocks."""
         x = x.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
         if use_kernel(self.pallas, x, train) and not (train and self.bwd == "ref"):
+            count("trunk.blocks.kernel")
             out = convnext_block(x, *self.params(), bwd=self.bwd)
         else:
+            count("trunk.blocks.eager")
             out = convnext_block_ref(x, *self.params())
         return out.permute(0, 3, 1, 2)
 
@@ -148,14 +163,15 @@ class ConvNeXtFeatures(nn.Module):
     def forward(self, x, train: bool = False):
         outs = []
         for i, depth in enumerate(self.depths):
-            if i == 0:
-                x = self.stem_norm(self.stem_conv(x))
-            else:
-                x = getattr(self, f"downsample_conv{i}")(
-                    getattr(self, f"downsample_norm{i}")(x)
-                )
-            for j in range(depth):
-                x = getattr(self, f"stage{i}_block{j}")(x, train)
+            with span(STAGE_SPANS[i]):
+                if i == 0:
+                    x = self.stem_norm(self.stem_conv(x))
+                else:
+                    x = getattr(self, f"downsample_conv{i}")(
+                        getattr(self, f"downsample_norm{i}")(x)
+                    )
+                for j in range(depth):
+                    x = getattr(self, f"stage{i}_block{j}")(x, train)
             if i in self.out_indices:
                 outs.append(x)
         return tuple(outs)

@@ -8,7 +8,7 @@ how its two designs are laid out) computes
 
 with LN scale/bias folded into fc1 and layer-scale gamma into fc2
 (:func:`kernel_operands`). Its route (:func:`forward_route`, the library's
-rule) sends bf16 up to C = 384 to its Hopper design (the products on wgmma)
+rule) sends bf16 up to C = 512 to its Hopper design (the products on wgmma)
 and fp32 and C = 768 to its first design (wmma); the two take the folded
 weights in different layouts. The functions here:
 
@@ -61,6 +61,11 @@ from .build import load_library
 
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 MAX_CHANNELS = 768
+# the widest C of K1's Hopper design and of K2's Hopper pipeline in bf16
+# (``k1h::HMAXC``, ``k2h::HMAXC``): the libraries' routes (:func:`forward_route`,
+# ``convnext_block_bwd.hopper_route``) hold the rule, ``chip_smoke.py`` holds
+# this number against both, and the model's block route reads it
+HOPPER_MAX_CHANNELS = 512
 
 
 def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
@@ -173,14 +178,14 @@ def _library() -> ctypes.CDLL:
 @functools.lru_cache(maxsize=None)
 def forward_route(dt, c: int) -> bool:
     """Whether K1's CUDA calls in compute dtype ``dt`` at width ``c`` run its
-    Hopper design (bf16 up to C = 384) rather than its first design: the
+    Hopper design (bf16 up to C = 512) rather than its first design: the
     library's own rule (``cnb_forward_route``), which also picks the weight
     layouts that :func:`kernel_operands` hands the kernel."""
     return bool(_library().cnb_forward_route(c, int(dt == torch.bfloat16)))
 
 
 def hopper_tile(c: int, saving: bool = False) -> dict:
-    """K1's Hopper design at width ``c`` (bf16, ``c`` <= 384) on the current
+    """K1's Hopper design at width ``c`` (bf16, ``c`` <= 512) on the current
     card: its tile, CTAs per SM, shared memory per CTA and hidden chunk."""
     info = (ctypes.c_int * 6)()
     rc = _library().cnb_forward_hopper_tile(c, int(saving), info)

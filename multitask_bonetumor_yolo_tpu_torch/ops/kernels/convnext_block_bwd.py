@@ -22,7 +22,7 @@ b2 * sum g`` (the TPU kernel forms ``o = dt(a) dt(w2)^T`` for dgamma and
 
   * :func:`convnext_block_bwd` — on a CUDA tensor it launches the kernels of
     ``csrc/convnext_block_bwd.cu`` (whose header says what bounds them and
-    how they are laid out) or raises: in bf16 up to C = 384 its Hopper
+    how they are laid out) or raises: in bf16 up to C = 512 its Hopper
     pipeline (four launches, wgmma products), otherwise its first design; on
     a CPU tensor it returns the plain version.
   * :func:`convnext_block_bwd_plain` — the same math and the same casts to
@@ -169,13 +169,14 @@ def _library() -> ctypes.CDLL:
 @functools.lru_cache(maxsize=None)
 def hopper_route(dt, c: int) -> bool:
     """Whether K2's CUDA calls in compute dtype ``dt`` at width ``c`` run its
-    Hopper pipeline (bf16 up to C = 384) rather than its first design: the
+    Hopper pipeline (bf16 up to C = 512) rather than its first design: the
     library's own rule (``cnb_backward_route``), which also picks the
     pointer list that :func:`convnext_block_bwd` must pass."""
     return bool(_library().cnb_backward_route(c, int(dt == torch.bfloat16)))
 
 
-# K4's route (bf16 up to C = 384: the Hopper pipeline), mirrored from the
+# K4's route (bf16 up to C = 384: the Hopper pipeline; K2's goes on to 512,
+# K4's row pass stops at Tiny's widths), mirrored from the
 # library's rule ``cnb_backward_v1_route``; the wrapper picks its pointer list
 # by it and holds it against the library's at each (dtype, C) it meets
 V1_HOPPER_MAX_C = 384
@@ -196,9 +197,9 @@ def _v1_route_checked(dt, c: int) -> bool:
 
 
 def row_pass_config(c: int, v1: bool = False) -> dict:
-    """K2's (``v1``: K4's) Hopper row pass at width ``c`` (bf16, ``c`` <= 384)
-    on the current card: its shared memory per CTA, CTAs per SM and hidden
-    chunk."""
+    """K2's (``v1``: K4's) Hopper row pass at width ``c`` (bf16, ``c`` <= 512;
+    K4's <= 384) on the current card: its shared memory per CTA, CTAs per SM
+    and hidden chunk."""
     vals = [ctypes.c_int() for _ in range(3)]
     rc = _library().cnb_backward_row_config(c, int(v1), *[ctypes.byref(v) for v in vals])
     if rc != 0:

@@ -27,11 +27,13 @@ goes. Its 14 variants, each a function of x bf16 ``[B, H, W, C]``, the taps
     and unit gamma: K1 itself, through its own C entry ``cnb_forward`` with
     zero biases (the fold of a unit LN and a unit gamma is the identity).
 
-The lab follows K1's route. In bf16 up to C = 384 it cuts K1's Hopper
-design (``csrc/kernel_lab.cu`` on ``csrc/convnext_block_h.cuh``: the
-products on wgmma, K1's tile and loads), which takes the weights as
-``w1'^T [4C, C]`` and ``w2'^T [C, 4C]`` (:func:`hopper_operands`); at C =
-768, where K1 runs its first design, it cuts that design. The first
+The lab follows K1's route up to Tiny's widths. In bf16 up to C = 384 it
+cuts K1's Hopper design (``csrc/kernel_lab.cu`` on
+``csrc/convnext_block_h.cuh``: the products on wgmma, K1's tile and loads),
+which takes the weights as ``w1'^T [4C, C]`` and ``w2'^T [C, 4C]``
+(:func:`hopper_operands`); wider, it cuts the first design: at C = 768,
+where K1 runs that design too, and at 512, where K1 runs its Hopper design
+and the lab has no phases of it (:func:`hopper_route`). The first
 design's lab at every width (``csrc/kernel_lab_v0.cu``) stays callable as
 :func:`lab_variant_v0`, the "before".
 
@@ -94,7 +96,9 @@ VARIANTS = {
 # a variant that launches another's instantiation
 SHARES = {"mlptanh": "mlpgelu"}
 DW_FAMILY = ("dw", "dwexpr", "dwrow", "dwrow2", "dwrownh", "dwrowreg")
-HOPPER_MAX_CHANNELS = 384  # K1's Hopper design in bf16 (its route)
+# the widest C at which the lab cuts K1's Hopper design into phases: Tiny's
+# widths; K1's route goes on to ``convnext_block.HOPPER_MAX_CHANNELS`` = 512
+HOPPER_MAX_CHANNELS = 384
 V0_SECOND_TILE = 32  # TM of the first-design lab's second tile
 
 
@@ -230,9 +234,10 @@ def _library(v0: bool = False) -> ctypes.CDLL:
 
 
 def hopper_route(c: int) -> bool:
-    """Whether the lab runs K1's Hopper design at C = ``c``: K1's bf16 route
-    (``cnb_forward_route``, up to C = 384), which ``chip_smoke.py`` checks
-    against the library."""
+    """Whether the lab runs K1's Hopper design at C = ``c``: where K1's bf16
+    route (``cnb_forward_route``) does and ``c`` <= ``HOPPER_MAX_CHANNELS``;
+    ``chip_smoke.py`` holds this against the library at every width the
+    route knows, 512 included, where the lab stops and K1 does not."""
     return c <= HOPPER_MAX_CHANNELS
 
 

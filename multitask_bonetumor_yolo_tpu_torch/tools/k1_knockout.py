@@ -54,8 +54,8 @@ EDITS = {
     "no_weight_loads": (
         ("    const bool in = ch * 8 < C;\n    cp_async16_zfill(dst + sm90::swz(NC, n, ch * 8)",
          "    const bool in = false;\n    cp_async16_zfill(dst + sm90::swz(NC, n, ch * 8)"),
-        ("    const bool in = c < C;\n    cp_async16_zfill(dst + sm90::swz(L::CP, c, ch * 8)",
-         "    const bool in = false;\n    cp_async16_zfill(dst + sm90::swz(L::CP, c, ch * 8)"),
+        ("    const bool in = c < C;\n    cp_async16_zfill(dst + sm90::swz(L::CP, c, k0 + ch * 8)",
+         "    const bool in = false;\n    cp_async16_zfill(dst + sm90::swz(L::CP, c, k0 + ch * 8)"),
     ),
     "other_tile": (
         ("  if (C <= 96) return K1H_LAUNCH(96, 64, 64);",

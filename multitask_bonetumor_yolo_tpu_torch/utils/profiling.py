@@ -46,6 +46,8 @@ SPANS = {
     "infer.upload": "infer_batch: the host images to float on the model's device",
     "model.forward": "models/model.py::MultitaskModel.forward",
     "model.backbone": "MultitaskModel.forward: the ConvNeXt trunk",
+    **{f"model.backbone.stage{i}": f"models/backbone.py::ConvNeXtFeatures: stage {i}, its "
+       "downsample (the stem at 0) and blocks" for i in range(4)},
     "model.neck": "MultitaskModel.forward: the BiFPN",
     "model.heads": "MultitaskModel.forward: segment, detect, classifier, projector; "
                    "decode under mode='infer'",
@@ -72,6 +74,9 @@ COUNTERS = {
     "nms.waits": "a host read in NMS",
     "kernels.built": "an nvcc run",
     "kernels.loaded": "a library load",
+    "trunk.blocks.kernel": "a ConvNeXt block on the kernel route (K1; K1's saving form "
+                           "and K2 in training; the plain twin on a CPU tensor)",
+    "trunk.blocks.eager": "a ConvNeXt block on the eager route (convnext_block_ref)",
 }
 MAX_RECORDS = 1 << 16
 # the hand-written kernels: short name -> the wrapper whose ``launches``

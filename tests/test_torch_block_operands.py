@@ -100,10 +100,13 @@ def test_first_design_entry_on_cpu_is_the_twin():
     (torch.bfloat16, 48, True), (torch.bfloat16, 96, True), (torch.bfloat16, 192, True),
     (torch.bfloat16, 384, True), (torch.bfloat16, 768, False), (torch.float32, 96, False),
     (torch.float32, 384, False), (torch.float32, 768, False),
+    (torch.bfloat16, 128, True), (torch.bfloat16, 256, True), (torch.bfloat16, 512, False),
+    (torch.bfloat16, 1024, False),
 ])
 def test_k4_route_rule(dt, c, hopper):
     """K4's Python route rule: bf16 up to C = 384 runs K2's Hopper pipeline
-    under V1; fp32 and C = 768 run K4's first design."""
+    under V1; fp32, and C = 512 and above (K4's row pass stops at Tiny's
+    widths, where K2's goes on to 512), run K4's first design."""
     assert k2.bwd_v1_route(dt, c) is hopper
 
 

@@ -61,9 +61,9 @@ def test_kernel_matches_twin(dev, shape, dtype, tol):
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
-@pytest.mark.parametrize("c", [48, 96, 192, 384])
+@pytest.mark.parametrize("c", [48, 96, 192, 384, 512])
 def test_hopper_design_matches_twin(dev, c):
-    """K1's route sends bf16 up to C = 384 to its Hopper design: both forms
+    """K1's route sends bf16 up to C = 512 to its Hopper design: both forms
     against the twin at an odd shape (partial 8 x 8 tiles), two calls equal
     bit for bit, the saving form's out equal to the inference form's, and its
     y equal bit for bit to the first design's (phase 1 is the same code)."""
@@ -179,6 +179,32 @@ def test_bwd_kernel_matches_plain(dev, shape, dtype, tol):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("c,hw", [(128, (13, 21)), (256, (13, 21)), (512, (13, 21)),
+                                  (128, (160, 160)), (256, (80, 80)), (512, (40, 40))])
+def test_base_widths_match_twins(dev, c, hw):
+    """ConvNeXt-Base's trunk widths on K1's Hopper design (both forms) and
+    K2's Hopper pipeline: C = 128 and 256 on the CP = 192 and 384
+    instantiations (the channels past C zero), C = 512 on its own (a packed
+    w2'^T ring in K1; K2's split row pass), against the plain twins at an odd
+    shape (partial tiles) and at the stage's own 640^2 map (batch 2), at the
+    tolerances of the tests above; the saving form's out equal to the
+    inference form's bit for bit."""
+    assert cnb.forward_route(torch.bfloat16, c) and k2.hopper_route(torch.bfloat16, c)
+    x, *params = block_args(15, 2, *hw, c, torch.bfloat16, dev)
+    got = cnb.convnext_block(x, *params)
+    out, y = cnb.convnext_block_saving(x, *params)
+    want, want_y = cnb.convnext_block_plain_saving(x, *params)
+    g = torch.randn(x.shape, generator=torch.Generator(dev).manual_seed(16),
+                    device=dev).to(torch.bfloat16)
+    grads = k2.convnext_block_bwd(x, want_y, g, *params)
+    want_grads = k2.convnext_block_bwd_plain(x, want_y, g, *params)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=3e-2, rtol=3e-2)
+    torch.testing.assert_close(y.float(), want_y.float(), atol=3e-2, rtol=3e-2)
+    assert torch.equal(out, got)
+    check_bwd(grads, want_grads, 3e-2)
+
+
 def profiled(run, attempts=4):
     """``run()`` under ``torch.profiler`` and the names of the device kernels
     it launched. The profiler can come back with no device event at all for
@@ -195,9 +221,9 @@ def profiled(run, attempts=4):
     return out, names
 
 
-@pytest.mark.parametrize("c", [48, 96, 192, 384])
+@pytest.mark.parametrize("c", [48, 96, 192, 384, 512])
 def test_bwd_hopper_pipeline_launches(dev, c):
-    """A bf16 call up to C = 384 runs K2's Hopper pipeline: at most five
+    """A bf16 call up to C = 512 runs K2's Hopper pipeline: at most five
     kernel launches per call, counted by the profiler, none of them a
     library kernel, and two calls equal bit for bit. The library's route
     rule, which picks the operands and pointer list, says the same."""

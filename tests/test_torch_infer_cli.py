@@ -16,7 +16,7 @@ from multitask_bonetumor_yolo_tpu.utils.logging import RunLogger as JaxRunLogger
 from multitask_bonetumor_yolo_tpu_torch.data.imageio import read_png, write_png
 from multitask_bonetumor_yolo_tpu_torch.data.jpeg import write_jpeg
 from multitask_bonetumor_yolo_tpu_torch.models import ModelConfig, build_model
-from multitask_bonetumor_yolo_tpu_torch.models.backbone import use_kernel
+from multitask_bonetumor_yolo_tpu_torch.models.backbone import bwd_for_dim, use_kernel
 from test_torch_model import one_torch_thread  # noqa: F401 (autouse)
 
 SIZE = 64
@@ -136,15 +136,29 @@ def fake(device, dim):
 
 @pytest.mark.parametrize("pallas", ["auto", "on", "off"])
 def test_use_kernel_stage_policy(pallas):
-    """Under "auto" the inference forward runs K1 for C <= 384 and the eager
-    block at C = 768 on the card, and training keeps the kernel at every
-    width (``bwd_for_dim`` decides there); the CPU runs eager. "on" runs the
+    """Under "auto" the inference forward runs K1 for C <= 512 (every stage
+    of ConvNeXt-Tiny and -Base but the last) and the eager block at C = 768
+    and 1024 on the card, and training keeps the kernel at every width
+    (``bwd_for_dim`` decides there); the CPU runs eager. "on" runs the
     kernel everywhere, "off" nowhere."""
-    for dim in (96, 192, 384, 768):
+    for dim in (96, 128, 192, 256, 384, 512, 768, 1024):
         for train in (False, True):
             for dev in ("cuda", "cpu"):
                 want = {"on": True, "off": False,
-                        "auto": dev == "cuda" and (train or dim <= 384)}[pallas]
+                        "auto": dev == "cuda" and (train or dim <= 512)}[pallas]
                 assert use_kernel(pallas, fake(dev, dim), train) is want, (dim, train, dev)
     with pytest.raises(ValueError):
         use_kernel("sometimes", fake("cuda", 96))
+
+
+@pytest.mark.parametrize("dim,want", [(96, "fused"), (128, "fused"), (192, "fused"),
+                                      (256, "fused"), (384, "fused"), (512, "fused"),
+                                      (768, "ref"), (1024, "ref")])
+def test_bwd_for_dim_stage_policy(dim, want):
+    """Under "auto" a stage trains on K1's saving form and K2 up to C = 512
+    (Tiny's stages 0-2, Base's 0-2) and as eager blocks under autograd at
+    768 and 1024; "fused" and "ref" hold at every width."""
+    assert bwd_for_dim(dim) == want
+    assert bwd_for_dim(dim, "fused") == "fused" and bwd_for_dim(dim, "ref") == "ref"
+    with pytest.raises(ValueError):
+        bwd_for_dim(dim, "sometimes")

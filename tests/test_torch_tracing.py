@@ -9,6 +9,7 @@ as it recorded them, and changes no output bit. Torch only.
 """
 
 import copy
+import dataclasses
 
 import numpy as np
 import pytest
@@ -28,7 +29,8 @@ CFG = ModelConfig(img_size=IMG, backbone_depths=(1, 1, 1, 1), backbone_dims=(16,
                   bifpn_feature_size=32, proto_ch=8, dtype="float32", pallas="off")
 LOSS = LossConfig(img_size=IMG, nc_det=2, assigner="tal")
 SERVE = dict(conf_thresh=0.0, nms_iou=0.6, top_k=20, instance_masks=True)
-MODEL_TREE = {"model.forward": "model.backbone model.neck model.heads".split()}
+MODEL_TREE = {"model.forward": "model.backbone model.neck model.heads".split(),
+              "model.backbone": [f"model.backbone.stage{i}" for i in range(4)]}
 # span -> its children, as the call sites open them
 TREE = {
     "infer": ["infer.upload", "model.forward", "nms", "masks"],
@@ -128,6 +130,29 @@ def test_span_tree_of_a_request_and_a_step(runs):
     assert rep["per_root"]["infer"]["count"] == rep["per_root"]["train_step"]["count"] == 1
     assert rep["per_root"]["infer"]["nms.waits"] == rep["counters"]["nms.waits"]
     assert set(rep["first"]) == {"infer", "train_step"}
+
+
+@pytest.mark.parametrize("pallas,route", [("off", "eager"), ("on", "kernel")])
+def test_trunk_counts_its_blocks_by_route(pallas, route):
+    """Each block counts its route once per forward, in a request's root and
+    in a step's: "off" runs every block eager, "on" every block on the
+    kernel route (the plain twins on the CPU); the other counter stays
+    unraised. On the card "auto" splits them by width (33 / 3 at
+    ConvNeXt-Base, 15 / 3 at Tiny)."""
+    cfg = dataclasses.replace(CFG, backbone_depths=(1, 2, 1, 1), pallas=pallas)
+    model = build_model(cfg, seed=0, device="cpu").eval()
+    images = np.random.RandomState(0).randint(0, 256, (B, IMG, IMG, 3), dtype=np.uint8)
+    batch = synthetic_batch(B, IMG, torch.Generator().manual_seed(1))
+    profiling.enable()
+    infer_batch(model, images, **SERVE)
+    state = create_train_state(cfg, TrainConfig(lr=1e-3), model=copy.deepcopy(model).train())
+    make_train_step(cfg, LOSS)(state, batch, None)
+    rep = profiling.report()
+    other = {"eager": "kernel", "kernel": "eager"}[route]
+    for root in ("infer", "train_step"):
+        assert rep["per_root"][root][f"trunk.blocks.{route}"] == 5, root
+        assert f"trunk.blocks.{other}" not in rep["per_root"][root], root
+    assert rep["spans"]["model.backbone.stage1"]["count"] == 2
 
 
 def test_nms_counts_its_host_reads_and_candidates(monkeypatch):
